@@ -1,0 +1,528 @@
+"""SPANN index (counterpart of ``spfresh_tpu/index/spann.py``).
+
+Canonical posting state lives in host dicts (cluster id -> (ids, vectors),
+cluster id -> centroid), exactly as in the JAX package, so ``save``/``load``
+are format-compatible with it.  Search runs the padded pipeline of the
+reference's ``_search_kernel_padded`` on the index's ``device``:
+
+1. stage 1: dense centroid scan + tie-stable top-nprobe (``centroid_topk``);
+2. slab rerank of the probed postings (``ops.rerank``: the CUDA kernel on a
+   CUDA device, its plain version on the CPU);
+3. masking, optional reference-style pruning, and the bounded-dedup global
+   top-k (``smallest_k_unique``).
+
+Every posting list is one contiguous (pad, d_pad) slab of a
+(Cpad, pad, d_pad) device array (``padded_view``), packed on the device
+straight from the build corpus when the index was just built.
+
+Not ported: incremental view updates (``_apply_padded_updates``), the CSR
+``DeviceView`` and its XLA engine, the reduced query wires and int8 storage
+(ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gzip
+import json
+import os
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from spfresh_tpu_torch.core.dtypes import DtypePolicy
+from spfresh_tpu_torch.index.config import Config
+from spfresh_tpu_torch.index.posting_store import (
+    FileBasedPostingListStore,
+    PointData,
+    read_packed_postings,
+    write_packed_postings_streaming,
+)
+from spfresh_tpu_torch.ops.distances import canonical_metric, pairwise_distance, rowwise_distance
+from spfresh_tpu_torch.ops.rerank import padded_rerank_distances
+from spfresh_tpu_torch.ops.topk import centroid_topk, smallest_k, smallest_k_unique
+from spfresh_tpu_torch.utils import metrics
+
+MANIFEST = "manifest.json"
+CENTROIDS_FILE = "centroids.npy.gz"
+PACKED_FILE = "postings.csr"
+_F32_EPS = float(np.finfo(np.float32).eps)
+_PACK_CHUNK = 1 << 18  # member rows per slab-pack step (bounds the gather)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _next_pow2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (x - 1).bit_length()
+
+
+def _ids_i32(a: np.ndarray) -> np.ndarray:
+    """Device views carry point ids as int32; ids must fit."""
+    if a.size and (int(a.max()) >= np.iinfo(np.int32).max or int(a.min()) < -1):
+        raise ValueError(
+            "point ids must fit in int32 for the device view "
+            f"(got max {int(a.max())}, min {int(a.min())}); re-map ids"
+        )
+    return a.astype(np.int32)
+
+
+def _max_multiplicity(all_ids: np.ndarray) -> int:
+    """Largest number of postings any single point id appears in."""
+    if all_ids.size == 0:
+        return 1
+    _, counts = np.unique(all_ids, return_counts=True)
+    return int(counts.max())
+
+
+# ---------------------------------------------------------------------------
+# Search pipeline
+# ---------------------------------------------------------------------------
+
+
+def _search_padded(queries, view: "PaddedView", *, k: int, nprobe: int, metric: str,
+                   prune_factor: Optional[float]):
+    """probe -> slab rerank -> masked dedup top-k for one query batch.
+
+    queries (Q, d_pad) f32 on the view's device.  Stage 1 rounds the queries
+    to the centroid dtype, as the reference does; the rerank uses the f32
+    queries.  Returns (ids (Q, k) int32 [-1 = no hit], dists (Q, k) f32)."""
+    Q = queries.shape[0]
+    pad = view.pad
+    qf = queries.to(view.centroids.dtype)
+    cent_d, rows = centroid_topk(qf, view.centroids, view.cent_valid, nprobe, metric)
+    d = padded_rerank_distances(queries, rows.to(torch.int32), view.vectors3d, metric)
+    ar = torch.arange(pad, device=queries.device)
+    valid = (ar < view.lens[rows][..., None]) & torch.isfinite(cent_d)[..., None]
+    inf = torch.full_like(d, float("inf"))
+    cand_ids = torch.where(valid, view.ids2d[rows], torch.full_like(view.ids2d[rows], -1))
+    d = torch.where(valid, d, inf)
+    if prune_factor is not None:
+        # Reference-style query-aware pruning: keep points within
+        # prune_factor * (nearest-centroid distance + eps).
+        thr = float(np.float32(prune_factor)) * (cent_d[:, 0] + _F32_EPS)
+        d = torch.where(d <= thr[:, None, None], d, inf)
+    n_cand = nprobe * pad
+    d = d.reshape(Q, n_cand)
+    cand_ids = cand_ids.reshape(Q, n_cand)
+    vals, out_ids = smallest_k_unique(d, cand_ids, k, max_dup=view.max_dup)
+    out_ids = torch.where(torch.isfinite(vals), out_ids, torch.full_like(out_ids, -1))
+    return out_ids, vals
+
+
+def _brute_force_exact(corpus, queries, k: int, metric: str):
+    D = pairwise_distance(queries.to(corpus.dtype), corpus, metric, exact=True)
+    return smallest_k(D, k)
+
+
+def _brute_force_2stage(corpus, queries, k: int, kc: int, metric: str, chunk: int):
+    """Large-corpus exact top-k: the fast expansion scan keeps a running
+    top-kc over ``chunk``-row corpus blocks, then the elementwise-exact form
+    reranks the kc candidates.  Exact as long as the true top-k survive the
+    ~1e-3-relative-error prefilter into the top-kc (kc >> k)."""
+    n = corpus.shape[0]
+    Q = queries.shape[0]
+    dev = corpus.device
+    qf = queries.to(corpus.dtype)
+    best_d = torch.full((Q, kc), float("inf"), device=dev)
+    best_i = torch.zeros((Q, kc), dtype=torch.int64, device=dev)
+    for start in range(0, n, chunk):
+        block = corpus[start : start + chunk]
+        D = pairwise_distance(qf, block, metric)  # (Q, chunk)
+        col = start + torch.arange(block.shape[0], device=dev)
+        cat_d = torch.cat([best_d, D], dim=1)
+        cat_i = torch.cat([best_i, col.expand(Q, -1)], dim=1)
+        best_d, idx = smallest_k(cat_d, kc)
+        best_i = torch.gather(cat_i, 1, idx)
+    d_exact = rowwise_distance(corpus[best_i], qf[:, None, :], metric)  # (Q, kc)
+    vals, idx = smallest_k(d_exact, k)
+    return vals, torch.gather(best_i, 1, idx)
+
+
+def brute_force_search(corpus, queries, k: int, metric: str = "Euclidean",
+                       batch_size: int = 1024, device: torch.device | str = "cpu"):
+    """Exact top-k ground truth on ``device``: (dists (Q, k), ids (Q, k)).
+
+    Up to 10k corpus rows the fully elementwise exact form is used; past
+    that a two-stage scan (expansion prefilter to max(32k, 256) candidates
+    for Euclidean, then the exact rerank) keeps intermediates bounded."""
+    metric = canonical_metric(metric)
+    corpus = torch.as_tensor(np.asarray(corpus, np.float32)).to(device)
+    queries = np.ascontiguousarray(queries, np.float32)
+    n = corpus.shape[0]
+    k = min(int(k), n)
+    big = n > 10_000
+    if metric == "Euclidean":
+        kc, chunk = min(max(32 * k, 256), n), 65536
+    else:
+        kc, chunk = k, 8192
+    out_d, out_i = [], []
+    for s in range(0, queries.shape[0], batch_size):
+        qb = torch.from_numpy(queries[s : s + batch_size]).to(device)
+        if big:
+            d, i = _brute_force_2stage(corpus, qb, k, kc, metric, chunk)
+        else:
+            d, i = _brute_force_exact(corpus, qb, k, metric)
+        out_d.append(d)
+        out_i.append(i)
+    return torch.cat(out_d).cpu().numpy(), torch.cat(out_i).cpu().numpy()
+
+
+def _pack_slabs(vec_source, flat_ids: np.ndarray, slots: np.ndarray, Cpad: int, pad: int,
+                d: int, d_pad: int, sd: torch.dtype, device: torch.device):
+    """Scatter the P member rows into a zeroed (Cpad * pad, d_pad) slab
+    array in ``_PACK_CHUNK`` steps, casting to the storage dtype on the
+    device.  ``vec_source(s, e)`` returns rows s..e as an f32 device tensor
+    (a gather from the device corpus, or an upload of host rows), so peak
+    memory is the slabs plus one chunk."""
+    P = slots.shape[0]
+    v = torch.zeros((Cpad * pad, d_pad), dtype=sd, device=device)
+    slots_dev = torch.from_numpy(slots.astype(np.int64)).to(device)
+    for s in range(0, P, _PACK_CHUNK):
+        e = min(P, s + _PACK_CHUNK)
+        v[slots_dev[s:e], :d] = vec_source(s, e).to(sd)
+    ids = torch.full((Cpad * pad,), -1, dtype=torch.int32, device=device)
+    ids[slots_dev] = torch.from_numpy(flat_ids).to(device)
+    return v.reshape(Cpad, pad, d_pad), ids.reshape(Cpad, pad)
+
+
+@dataclasses.dataclass
+class PaddedView:
+    """Slab layout: every posting list is one contiguous (pad, d_pad) block
+    of a (Cpad, pad, d_pad) device array; d is zero-padded to a multiple of
+    128 (zeros cancel in every metric because queries are padded alike)."""
+
+    centroids: torch.Tensor  # (Cpad, d_pad) storage dtype
+    cent_valid: torch.Tensor  # (Cpad,) bool
+    lens: torch.Tensor  # (Cpad,) int32
+    ids2d: torch.Tensor  # (Cpad, pad) int32 (-1 = padding)
+    vectors3d: torch.Tensor  # (Cpad, pad, d_pad) storage dtype
+    pad: int
+    d_pad: int
+    max_dup: int = 8
+
+
+class _LazyMemberVecs:
+    """Posting member vectors materialized on first touch from the build
+    corpus (``corpus[ids]``): a fresh build packs its slabs from the device
+    corpus, so nothing host-side reads the replicated member vectors unless
+    a save or lookup touches them."""
+
+    __slots__ = ("_corpus", "_ids", "_mat")
+
+    def __init__(self, corpus: np.ndarray, ids: np.ndarray):
+        self._corpus = corpus
+        self._ids = ids
+        self._mat = None
+
+    def _m(self) -> np.ndarray:
+        if self._mat is None:
+            self._mat = self._corpus[self._ids]
+        return self._mat
+
+    def peek(self) -> np.ndarray:
+        """Materialize without caching — for streaming consumers (save)."""
+        return self._mat if self._mat is not None else self._corpus[self._ids]
+
+    def __array__(self, dtype=None, copy=None):
+        m = self._m()
+        return m if dtype is None else m.astype(dtype, copy=False)
+
+    def __len__(self) -> int:
+        return len(self._ids)
+
+    def __getitem__(self, key):
+        return self._m()[key]
+
+
+class SpannIndex:
+    """SPANN index with host posting state and a device slab view on
+    ``device``."""
+
+    def __init__(self, config: Optional[Config] = None, device: torch.device | str = "cpu"):
+        self.config = config or Config()
+        self.device = torch.device(device)
+        self.metric = canonical_metric(self.config.distance_metric)
+        self.policy = DtypePolicy(self.config.storage_dtype)
+        self.dim: Optional[int] = None
+        # Canonical state: cluster_id -> (ids int64 (m,), vectors f32 (m, d)).
+        self.postings: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self.centroids: Dict[int, np.ndarray] = {}
+        self._next_cluster_id = 0
+        self._padded_view: Optional[PaddedView] = None
+        self._gen = 0  # bumped on every bulk change; the view caches its gen
+        self._padded_gen = -1
+        # (gen, all_ids, all_vecs) from a bulk load, for the first view pack.
+        self._flat_cache = None
+        # (gen, device corpus) from the build, for the on-device slab pack.
+        self._corpus_cache = None
+        self._mult_hint = 1
+        self.build_profile: Dict[str, float] = {}
+
+    def _dedup_bound(self) -> int:
+        return _next_pow2(self._mult_hint + 1)
+
+    # -- construction ------------------------------------------------------
+
+    def create_posting_lists(self, clusters, data: np.ndarray, corpus_dev=None) -> None:
+        """Postings from fitted clusters: one bulk id concatenation.
+        ``corpus_dev`` is the build corpus already on ``self.device``; when
+        given, the first view packs its slabs from it on the device and the
+        host member vectors stay lazy."""
+        data = np.asarray(data, dtype=np.float32)
+        self.dim = data.shape[1]
+        all_ids = (np.concatenate([np.asarray(c.points, np.int64) for c in clusters])
+                   if clusters else np.empty(0, np.int64))
+        fresh = self._next_cluster_id == 0
+        corpus_ok = corpus_dev is not None and corpus_dev.shape[0] > (
+            int(all_ids.max()) if all_ids.size else -1
+        )
+        lazy = fresh and corpus_ok
+        all_vecs = _LazyMemberVecs(data, all_ids) if lazy else data[all_ids]
+        pos = 0
+        for c in clusters:
+            m = len(c.points)
+            cid = self._next_cluster_id
+            self._next_cluster_id += 1
+            ids_c = all_ids[pos : pos + m]
+            vecs_c = _LazyMemberVecs(data, ids_c) if lazy else all_vecs[pos : pos + m]
+            self.postings[cid] = (ids_c, vecs_c)
+            self.centroids[cid] = data[c.centroid_idx].copy()
+            pos += m
+        self._gen += 1
+        if fresh and len(self.postings) == len(clusters):
+            self._flat_cache = (self._gen, all_ids, all_vecs)
+            if corpus_ok:
+                self._corpus_cache = (self._gen, corpus_dev)
+
+    @property
+    def num_clusters(self) -> int:
+        return len(self.postings)
+
+    @property
+    def num_vectors(self) -> int:
+        """Total stored vectors including boundary replicas."""
+        return sum(len(ids) for ids, _ in self.postings.values())
+
+    # -- device view -------------------------------------------------------
+
+    def padded_view(self) -> PaddedView:
+        """The slab layout, packed in full on first use after a bulk change:
+        (Cpad, pad, d_pad) with Cpad a multiple of 256, pad a multiple of 16
+        with ``slab_growth_slots`` spare slots, d_pad a multiple of 128."""
+        if self._padded_view is not None and self._padded_gen == self._gen:
+            return self._padded_view
+        if not self.postings:
+            raise ValueError("index is empty")
+        d = self.dim
+        d_pad = max(128, _round_up(d, 128))
+        cids = sorted(self.postings)
+        C = len(cids)
+        Cpad = max(8, _round_up(C, 256))
+        max_len = max(len(self.postings[c][0]) for c in cids)
+        pad = max(16, _round_up(max(1, max_len) + self.config.search.slab_growth_slots, 16))
+        if Cpad * pad >= np.iinfo(np.int32).max:
+            raise ValueError("padded view exceeds int32 slot space; shard the index")
+        lens = np.zeros(Cpad, np.int32)
+        cent = np.zeros((Cpad, d_pad), np.float32)
+        valid = np.zeros(Cpad, bool)
+        lens_l = np.array([len(self.postings[c][0]) for c in cids], np.int64)
+        offs_l = np.zeros(C + 1, np.int64)
+        np.cumsum(lens_l, out=offs_l[1:])
+        P = int(offs_l[-1])
+        lens[:C] = lens_l
+        valid[:C] = True
+        cent[:C, :d] = np.stack([self.centroids[c] for c in cids])
+        if self._flat_cache is not None and self._flat_cache[0] == self._gen:
+            all_ids, flat_vecs_all = self._flat_cache[1], self._flat_cache[2]
+        else:
+            all_ids = np.concatenate([self.postings[c][0] for c in cids])
+            flat_vecs_all = np.concatenate([np.asarray(self.postings[c][1], np.float32)
+                                            for c in cids])
+        flat_ids_all = _ids_i32(all_ids)
+        row_of = np.repeat(np.arange(C, dtype=np.int64), lens_l)
+        within = np.arange(P, dtype=np.int64) - np.repeat(offs_l[:C], lens_l)
+        slots = row_of * pad + within
+        dev = self.device
+        if self._corpus_cache is not None and self._corpus_cache[0] == self._gen:
+            # Member vectors are corpus rows (point id == corpus row in a
+            # bulk build): gather them on the device, upload only ids.
+            corpus = self._corpus_cache[1]
+            rows_dev = torch.from_numpy(all_ids.astype(np.int64)).to(dev)
+
+            def source(s, e):
+                return corpus[rows_dev[s:e]]
+        else:
+            def source(s, e):
+                return torch.from_numpy(np.asarray(flat_vecs_all[s:e], np.float32)).to(dev)
+        sd = self.policy.storage_dtype
+        vecs_dev, ids_dev = _pack_slabs(source, flat_ids_all, slots, Cpad, pad, d, d_pad, sd,
+                                        dev)
+        self._mult_hint = max(self._mult_hint, _max_multiplicity(all_ids))
+        self._padded_view = PaddedView(
+            centroids=torch.from_numpy(cent).to(dev).to(sd),
+            cent_valid=torch.from_numpy(valid).to(dev),
+            lens=torch.from_numpy(lens).to(dev),
+            ids2d=ids_dev,
+            vectors3d=vecs_dev,
+            pad=pad,
+            d_pad=d_pad,
+            max_dup=self._dedup_bound(),
+        )
+        self._padded_gen = self._gen
+        # The view is the only consumer of the build caches; release the
+        # device corpus they hold.
+        self._flat_cache = None
+        self._corpus_cache = None
+        return self._padded_view
+
+    # -- search ------------------------------------------------------------
+
+    def search(
+        self,
+        queries,
+        k: int,
+        nprobe: Optional[int] = None,
+        prune_factor: Optional[float] = None,
+        batch_size: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Batched ANN search.  Returns (ids (Q, k) int64, dists (Q, k) f32);
+        id -1 marks an empty slot (fewer than k reachable candidates)."""
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        if queries.shape[1] != self.dim:
+            raise ValueError(f"query dim {queries.shape[1]} != index dim {self.dim}")
+        if self.config.search.query_wire not in (None, "float32"):
+            raise NotImplementedError(
+                "reduced query wires are not ported (ROADMAP queue 1: query wires)"
+            )
+        metrics.inc("search.queries", queries.shape[0])
+        if nprobe is None:
+            nprobe = self.config.search.nprobe or k  # reference: nprobe == k
+        if prune_factor is None:
+            prune_factor = self.config.search.prune_factor
+        bs = batch_size or self.config.search.query_batch_size
+        view = self.padded_view()
+        eff_nprobe = max(1, min(int(nprobe), int(view.centroids.shape[0])))
+        qpad = np.zeros((queries.shape[0], view.d_pad), np.float32)
+        qpad[:, : self.dim] = queries
+        out_i, out_d = [], []
+        for s in range(0, queries.shape[0], bs):
+            qb = torch.from_numpy(qpad[s : s + bs]).to(self.device)
+            qi, qd = _search_padded(qb, view, k=int(k), nprobe=eff_nprobe, metric=self.metric,
+                                    prune_factor=prune_factor)
+            out_i.append(qi)
+            out_d.append(qd)
+        metrics.inc(f"search.engine.{self.device.type}")
+        # One device->host copy for the whole call; ids widen to int64.
+        return (
+            torch.cat(out_i).cpu().numpy().astype(np.int64),
+            torch.cat(out_d).cpu().numpy(),
+        )
+
+    def find_k_nearest_neighbor_spann(self, query, k: int) -> Optional[List[PointData]]:
+        """Single-query reference-parity API: nprobe = k and 1.2x pruning;
+        returns None when pruning leaves no candidates."""
+        ids, _ = self.search(
+            np.asarray(query, np.float32)[None, :], k, nprobe=k, prune_factor=1.2
+        )
+        hits = [int(i) for i in ids[0] if i >= 0]
+        if not hits:
+            return None
+        vec_by_id = self._vectors_for(hits)
+        return [PointData(i, vec_by_id[i]) for i in hits]
+
+    def _vectors_for(self, point_ids: List[int]) -> Dict[int, np.ndarray]:
+        """Resolve result ids to vectors via a gen-cached sorted id -> cid map."""
+        if getattr(self, "_id_map_gen", None) != self._gen:
+            cids = sorted(self.postings)
+            all_ids = np.concatenate([self.postings[c][0] for c in cids])
+            all_cids = np.repeat(np.fromiter(cids, np.int64, len(cids)),
+                                 [len(self.postings[c][0]) for c in cids])
+            order = np.argsort(all_ids, kind="stable")
+            self._id_map = (all_ids[order], all_cids[order])
+            self._id_map_gen = self._gen
+        sids, scids = self._id_map
+        out: Dict[int, np.ndarray] = {}
+        for pid in point_ids:
+            j = int(np.searchsorted(sids, pid))
+            if j < len(sids) and sids[j] == pid:
+                ids, vecs = self.postings[int(scids[j])]
+                row = int(np.nonzero(ids == pid)[0][0])
+                out[int(pid)] = np.asarray(vecs[row : row + 1])[0]
+        return out
+
+    # -- persistence -------------------------------------------------------
+
+    def save(self, directory: Optional[str] = None, format: str = "packed") -> str:
+        """Persist the index in the JAX package's formats: ``packed`` writes
+        one CSR file, ``per_cluster`` one file per posting list."""
+        directory = directory or self.config.output_path
+        os.makedirs(directory, exist_ok=True)
+        cids = sorted(self.postings)
+        cent = np.stack([self.centroids[c] for c in cids]).astype(np.float32)
+        with gzip.open(os.path.join(directory, CENTROIDS_FILE), "wb") as f:
+            np.save(f, cent)
+
+        def _vecs(c):
+            v = self.postings[c][1]
+            return v.peek() if isinstance(v, _LazyMemberVecs) else np.asarray(v, np.float32)
+
+        if format == "packed":
+            lens = np.array([len(self.postings[c][0]) for c in cids], np.int64)
+            offsets = np.zeros(len(cids) + 1, np.int64)
+            np.cumsum(lens, out=offsets[1:])
+            ids = np.concatenate([self.postings[c][0] for c in cids])
+            write_packed_postings_streaming(
+                os.path.join(directory, PACKED_FILE), cids, offsets, ids,
+                (_vecs(c) for c in cids), self.dim or 0,
+            )
+        elif format == "per_cluster":
+            store = FileBasedPostingListStore(directory)
+            for c in cids:
+                store.insert_posting_list(c, self.postings[c][0], _vecs(c))
+        else:
+            raise ValueError(f"unknown save format {format!r}")
+        manifest = {
+            "format_version": 1,
+            "layout": format,
+            "dim": self.dim,
+            "num_clusters": len(cids),
+            "cluster_ids": cids,
+            "next_cluster_id": self._next_cluster_id,
+            "config": self.config.to_dict(),
+            "max_dup": int(_max_multiplicity(
+                np.concatenate([np.asarray(self.postings[c][0]) for c in cids]))),
+        }
+        with open(os.path.join(directory, MANIFEST), "w") as f:
+            json.dump(manifest, f)
+        return directory
+
+    @classmethod
+    def load(cls, directory: str, config: Optional[Config] = None,
+             device: torch.device | str = "cpu") -> "SpannIndex":
+        with open(os.path.join(directory, MANIFEST)) as f:
+            manifest = json.load(f)
+        cfg = config or Config.from_dict(manifest.get("config", {}))
+        idx = cls(cfg, device=device)
+        idx.dim = manifest["dim"]
+        idx._next_cluster_id = manifest.get("next_cluster_id", 0)
+        with gzip.open(os.path.join(directory, CENTROIDS_FILE), "rb") as f:
+            cent = np.load(f)
+        for c, v in zip((int(c) for c in manifest["cluster_ids"]), cent):
+            idx.centroids[c] = v
+        if manifest["layout"] == "packed":
+            pcids, offsets, ids, vecs = read_packed_postings(os.path.join(directory, PACKED_FILE))
+            for i, c in enumerate(pcids):
+                s, e = int(offsets[i]), int(offsets[i + 1])
+                idx.postings[int(c)] = (np.array(ids[s:e]), np.array(vecs[s:e]))
+        else:
+            store = FileBasedPostingListStore.load_from_directory(directory)
+            for c in store.cluster_ids():
+                got = store.get_posting_list(c)
+                if got is not None:
+                    idx.postings[c] = got
+        idx._next_cluster_id = max([idx._next_cluster_id] + [c + 1 for c in idx.postings])
+        idx._gen += 1
+        return idx

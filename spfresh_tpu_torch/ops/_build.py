@@ -1,0 +1,121 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
+with a plain C interface, loaded with ``ctypes``::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/kernels/libspfresh_kernels_<hash>.so csrc/*.cu
+
+The library is built at first use and cached under ``build/kernels/`` in the
+checkout, keyed by a hash of the sources and flags, so a fresh checkout
+builds everything the first time a kernel launches.  No PyTorch headers
+are included: the build takes seconds, not minutes.  A failed build raises;
+there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libspfresh_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if the cached library is missing; return its path."""
+    out = _library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.spf_rerank.argtypes = [
+        p, p, p, p,          # queries, rows, vectors3d, out
+        i, i, i, i, i,       # Q, nprobe, Cpad, pad, d_pad
+        i, i,                # metric, bf16 slabs
+        p,                   # stream
+    ]
+    lib.spf_rerank.restype = i
+    lib.spf_replica_topk.argtypes = [
+        p, p, p, p,          # X, base, cents, db (nullable)
+        p, p,                # scratch: x2 (n,), cn2 (C,)
+        p, p,                # out idx (n, n_extra), out rank (n, n_extra)
+        i, i, i, i,          # n, C, d, n_extra
+        f, f,                # bt, soar_lambda
+        i,                   # bf16 inputs
+        p,                   # stream
+    ]
+    lib.spf_replica_topk.restype = i
+    lib.spf_error_string.argtypes = [i]
+    lib.spf_error_string.restype = ctypes.c_char_p
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a non-zero ``cudaError_t``."""
+    if rc != 0:
+        msg = library().spf_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc} ({msg})")

@@ -1,0 +1,95 @@
+"""Top-k selection (counterpart of ``spfresh_tpu/ops/topk.py``).
+
+``lax.top_k`` breaks ties toward the lower index; ``torch.topk`` promises
+no order among ties on CUDA.  ``smallest_k`` therefore selects on a unique
+int64 key, ``(order-preserving bits of the f32 value) << 32 | column``, so
+equal values resolve to the lower column on every device, exactly like the
+reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spfresh_tpu_torch.ops.distances import pairwise_distance
+
+# Centroid counts past this take the windowed scan kernel in the JAX package
+# (ops/topk.py:79-89); see centroid_topk.
+LARGE_C_THRESHOLD = 32_768
+
+_LOW32 = 0xFFFFFFFF
+
+
+def _tie_stable_keys(dists: torch.Tensor) -> torch.Tensor:
+    """Unique int64 keys ordering (value, column) lexicographically."""
+    # +0.0 folds -0.0 into +0.0 so both zeros share one key.
+    bits = (dists.to(torch.float32) + 0.0).view(torch.int32)
+    # IEEE sign-magnitude -> two's-complement order for negative values.
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    col = torch.arange(dists.shape[-1], device=dists.device, dtype=torch.int64)
+    return (bits.to(torch.int64) << 32) | col
+
+
+def smallest_k(dists: torch.Tensor, k: int):
+    """Per-row k smallest values of ``dists`` (..., n) -> (values, indices),
+    ascending, ties to the lower index."""
+    if k > dists.shape[-1]:
+        raise ValueError(f"k={k} exceeds the {dists.shape[-1]} columns")
+    keys = torch.topk(_tie_stable_keys(dists), k, dim=-1, largest=False, sorted=True).values
+    idx = keys & _LOW32
+    return torch.gather(dists, -1, idx), idx
+
+
+def smallest_k_unique(dists: torch.Tensor, ids: torch.Tensor, k: int, max_dup: int = 8):
+    """k smallest entries with distinct ``ids`` per row — exact given the
+    duplication bound ``max_dup`` (SPANN replication caps how often one id
+    can appear).  An oversampled top-(k * max_dup) prefilter provably holds
+    k distinct ids; duplicates inside it are masked with an O(k'^2)
+    comparison.  Duplicate copies carry identical distances, so keeping the
+    best-ranked copy is exact.
+
+    Returns (values (..., k), ids (..., k)); rows with fewer than k
+    candidates are padded with (+inf, -1)."""
+    n = dists.shape[-1]
+    if k > n:
+        pad = k - n
+        dists = torch.cat(
+            [dists, torch.full((*dists.shape[:-1], pad), float("inf"), dtype=dists.dtype,
+                               device=dists.device)], dim=-1)
+        ids = torch.cat(
+            [ids, torch.full((*ids.shape[:-1], pad), -1, dtype=ids.dtype, device=ids.device)],
+            dim=-1)
+        n = k
+    kk = min(max(k * max(1, max_dup), k), n)
+    vals, idx = smallest_k(dists, kk)
+    cand_ids = torch.gather(ids, -1, idx)
+    if max_dup > 1:
+        same = cand_ids[..., :, None] == cand_ids[..., None, :]  # (..., kk, kk)
+        earlier = torch.tril(torch.ones((kk, kk), dtype=torch.bool, device=dists.device),
+                             diagonal=-1)
+        dup = torch.any(same & earlier, dim=-1)
+        vals = torch.where(dup, torch.full_like(vals, float("inf")), vals)
+        out_vals, out_idx = smallest_k(vals, min(k, kk))
+        return out_vals, torch.gather(cand_ids, -1, out_idx)
+    return vals[..., :k], cand_ids[..., :k]
+
+
+def centroid_topk(qf: torch.Tensor, centroids: torch.Tensor, cent_valid, nprobe: int,
+                  metric: str):
+    """Stage-1 probe: dense (Q, C) distance scan + top-nprobe.  ``cent_valid``
+    may be None (all rows valid).
+
+    Past ``LARGE_C_THRESHOLD`` centroids the JAX package switches to a
+    windowed scan kernel; on CUDA that kernel is not ported yet, so the call
+    raises there instead of running a different algorithm."""
+    C = centroids.shape[0]
+    if C > LARGE_C_THRESHOLD and centroids.device.type == "cuda":
+        raise NotImplementedError(
+            f"{C} centroids exceed LARGE_C_THRESHOLD={LARGE_C_THRESHOLD}: the "
+            "windowed centroid scan kernel is not ported yet (ROADMAP queue 2: "
+            "ops/pallas/centroid_scan.py::pallas_centroid_window_scan)"
+        )
+    Dc = pairwise_distance(qf, centroids, metric)
+    if cent_valid is not None:
+        Dc = torch.where(cent_valid[None, :], Dc, torch.full_like(Dc, float("inf")))
+    return smallest_k(Dc, nprobe)
