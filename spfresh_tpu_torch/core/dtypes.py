@@ -2,12 +2,16 @@
 
 * **storage dtype** — how vectors live in device memory: ``float32`` by
   default, ``bfloat16`` halves the bytes the slab rerank streams.
+  ``int8`` is residual IVF-SQ8: each posting slab stores
+  ``round((x - c) / s_c)`` with one scale ``s_c`` per posting, and the
+  quantized slab rerank dequantizes it (``ops.rerank``).
 * **accumulation dtype** — always ``float32``.  Every distance upcasts its
   inputs to f32 *before* the matmul or reduction, so bf16-stored vectors
   accumulate like the f32 reference within rounding.
 
-``int8`` (per-posting residual IVF-SQ8 storage) is not ported yet: it needs
-the quantized rerank kernel (ROADMAP queue 1, "int8 storage").
+The int8 helpers below use the JAX package's f32 expressions
+(``spfresh_tpu/core/dtypes.py``), so packs from either package are
+bit-identical.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ ACCUM_DTYPE = torch.float32
 _STORAGE_DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
+    "int8": torch.int8,
 }
 
 
@@ -32,11 +37,6 @@ class DtypePolicy:
     storage: str = "float32"
 
     def __post_init__(self):
-        if self.storage == "int8":
-            raise NotImplementedError(
-                "int8 storage is not ported yet (ROADMAP queue 1: int8 "
-                "residual storage and the quantized slab rerank)"
-            )
         if self.storage not in _STORAGE_DTYPES:
             raise ValueError(
                 f"unsupported storage dtype {self.storage!r}; "
@@ -46,6 +46,35 @@ class DtypePolicy:
     @property
     def storage_dtype(self) -> torch.dtype:
         return _STORAGE_DTYPES[self.storage]
+
+    @property
+    def quantized(self) -> bool:
+        return self.storage == "int8"
+
+
+def quant_scale_for(vecs) -> float:
+    """Symmetric int8 scale for one posting: max|x| * (1/127), the same f32
+    expression as :func:`posting_scales_np`; 1.0 for an all-zero posting."""
+    m = np.float32(np.max(np.abs(np.asarray(vecs, np.float32)), initial=0.0))
+    return float(m * np.float32(1.0 / 127.0)) or 1.0
+
+
+def posting_scales_np(rowmax: np.ndarray) -> np.ndarray:
+    """Per-posting scales from exact per-posting abs-maxima: rowmax / 127 as
+    ``rowmax * f32(1/127)``, with empty or all-zero postings pinned to 1.0
+    so the reciprocal stays finite."""
+    rowmax = np.asarray(rowmax, np.float32)
+    return np.where(
+        rowmax > 0, rowmax * np.float32(1.0 / 127.0), np.float32(1.0)
+    ).astype(np.float32)
+
+
+def quantize_np(x: np.ndarray, scale) -> np.ndarray:
+    """int8 codes ``clip(rint(x * (1/scale)), -127, 127)``: a multiply by
+    the f32 reciprocal (not a division, which differs at .5 boundaries),
+    rounding half to even.  ``scale`` is a scalar or broadcasts per row."""
+    inv = np.float32(1.0) / np.asarray(scale, np.float32)
+    return np.clip(np.rint(np.asarray(x, np.float32) * inv), -127, 127).astype(np.int8)
 
 
 def bf16_round_np(x: np.ndarray) -> np.ndarray:

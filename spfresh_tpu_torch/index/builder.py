@@ -61,8 +61,12 @@ class SpannIndexBuilder:
         # Float storage keeps the caller's exact corpus on the host (the saved
         # f32 bytes must not degrade to the bf16 grid); the device corpus
         # carries the build's rounding, which bf16 storage re-applies
-        # idempotently.
-        index.create_posting_lists(hc.clusters, self.data, corpus_dev=hc.data)
+        # idempotently.  int8 storage quantizes residuals, so the host
+        # postings take the clusterer's rounded mirror, as in the JAX
+        # package: a view packed from the host then equals one packed from
+        # the device corpus.
+        host_src = hc._host_data if self.config.storage_dtype == "int8" else self.data
+        index.create_posting_lists(hc.clusters, host_src, corpus_dev=hc.data)
         if save:
             index.save(self.config.output_path)
         return index

@@ -6,10 +6,11 @@ imported only inside ``from_file``: the GPU machine may not have it.
 
 Keys the port keeps for format compatibility but does not act on yet:
 ``search.engine`` (the port has one search pipeline: the slab rerank
-kernel on CUDA, its plain version on the CPU), ``search.query_wire``
-(reduced query wires raise NotImplementedError in ``search``),
+kernel on CUDA, its plain version on the CPU) and
 ``build_sample_rows``/``build_tile_rows`` (the out-of-core build raises
-NotImplementedError), and ``storage_dtype: int8`` (``DtypePolicy`` raises).
+NotImplementedError).  ``storage_dtype: int8`` (residual IVF-SQ8) and the
+``search.query_wire`` values ``bfloat16`` and ``int8`` act as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ class Config:
     max_split_ways: int = 8
     # None = AUTO: lambda 0.5 on Euclidean, off otherwise.
     soar_lambda: Optional[float] = None
-    storage_dtype: str = "float32"  # or "bfloat16"
+    storage_dtype: str = "float32"  # or "bfloat16" or "int8"
     build_sample_rows: Optional[int] = None
     build_tile_rows: Optional[int] = None
     search: SearchConfig = dataclasses.field(default_factory=SearchConfig)

@@ -5,19 +5,24 @@ cluster id -> centroid), exactly as in the JAX package, so ``save``/``load``
 are format-compatible with it.  Search runs the padded pipeline of the
 reference's ``_search_kernel_padded`` on the index's ``device``:
 
-1. stage 1: dense centroid scan + tie-stable top-nprobe (``centroid_topk``);
+1. stage 1: centroid scan + tie-stable top-nprobe (``centroid_topk``: a
+   dense scan, or past 32,768 centroids the windowed scan kernel or the
+   chunked scan);
 2. slab rerank of the probed postings (``ops.rerank``: the CUDA kernel on a
-   CUDA device, its plain version on the CPU);
+   CUDA device, its plain version on the CPU; int8 slabs take its quantized
+   path with centered queries and per-posting scales);
 3. masking, optional reference-style pruning, and the bounded-dedup global
    top-k (``smallest_k_unique``).
 
 Every posting list is one contiguous (pad, d_pad) slab of a
 (Cpad, pad, d_pad) device array (``padded_view``), packed on the device
-straight from the build corpus when the index was just built.
+straight from the build corpus when the index was just built.  int8
+storage (IVF-SQ8) packs residual codes ``round((x - c) / s_c)`` with one
+scale per posting, bit-identical to the JAX package's pack, and keeps the
+centroids in f32.
 
 Not ported: incremental view updates (``_apply_padded_updates``), the CSR
-``DeviceView`` and its XLA engine, the reduced query wires and int8 storage
-(ROADMAP queue 1).
+``DeviceView`` and its XLA engine (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -88,12 +93,20 @@ def _search_padded(queries, view: "PaddedView", *, k: int, nprobe: int, metric: 
 
     queries (Q, d_pad) f32 on the view's device.  Stage 1 rounds the queries
     to the centroid dtype, as the reference does; the rerank uses the f32
-    queries.  Returns (ids (Q, k) int32 [-1 = no hit], dists (Q, k) f32)."""
+    queries (int8 slabs: the centered queries q - c_row and the probed
+    postings' scales).  Returns (ids (Q, k) int32 [-1 = no hit], dists
+    (Q, k) f32)."""
     Q = queries.shape[0]
     pad = view.pad
     qf = queries.to(view.centroids.dtype)
     cent_d, rows = centroid_topk(qf, view.centroids, view.cent_valid, nprobe, metric)
-    d = padded_rerank_distances(queries, rows.to(torch.int32), view.vectors3d, metric)
+    rows32 = rows.to(torch.int32)
+    if view.vectors3d.dtype == torch.int8:
+        qc = queries[:, None, :] - view.centroids[rows]  # (Q, nprobe, d_pad) f32
+        d = padded_rerank_distances(queries, rows32, view.vectors3d, metric,
+                                    scales=view.scales[rows], centered_queries=qc)
+    else:
+        d = padded_rerank_distances(queries, rows32, view.vectors3d, metric)
     ar = torch.arange(pad, device=queries.device)
     valid = (ar < view.lens[rows][..., None]) & torch.isfinite(cent_d)[..., None]
     inf = torch.full_like(d, float("inf"))
@@ -171,21 +184,49 @@ def brute_force_search(corpus, queries, k: int, metric: str = "Euclidean",
 
 
 def _pack_slabs(vec_source, flat_ids: np.ndarray, slots: np.ndarray, Cpad: int, pad: int,
-                d: int, d_pad: int, sd: torch.dtype, device: torch.device):
+                d: int, d_pad: int, sd: torch.dtype, device: torch.device, cent=None):
     """Scatter the P member rows into a zeroed (Cpad * pad, d_pad) slab
     array in ``_PACK_CHUNK`` steps, casting to the storage dtype on the
     device.  ``vec_source(s, e)`` returns rows s..e as an f32 device tensor
     (a gather from the device corpus, or an upload of host rows), so peak
-    memory is the slabs plus one chunk."""
+    memory is the slabs plus one chunk.
+
+    int8 (``cent`` (Cpad, d) f32 on the device) stores residual codes in
+    two passes over the chunks, with the JAX package's f32 expressions:
+    exact per-posting abs-maxima of ``x - c_row``, the scale
+    ``rowmax * f32(1/127)`` (1.0 for an all-zero posting), then
+    ``clamp(round((x - c_row) * (1 / scale)), -127, 127)`` with round half
+    to even.  Each step is its own rounded op, so no FMA contracts them.
+    Returns (slabs, ids2d, scales (Cpad,) f32; all ones for float
+    storage)."""
     P = slots.shape[0]
     v = torch.zeros((Cpad * pad, d_pad), dtype=sd, device=device)
     slots_dev = torch.from_numpy(slots.astype(np.int64)).to(device)
-    for s in range(0, P, _PACK_CHUNK):
-        e = min(P, s + _PACK_CHUNK)
-        v[slots_dev[s:e], :d] = vec_source(s, e).to(sd)
+    scales = torch.ones(Cpad, dtype=torch.float32, device=device)
+    if sd == torch.int8:
+        seg = slots_dev // pad  # slab row of each member
+
+        def residual(s, e):
+            return vec_source(s, e) - cent[seg[s:e]]
+
+        rowmax = torch.zeros(Cpad, dtype=torch.float32, device=device)
+        for s in range(0, P, _PACK_CHUNK):
+            e = min(P, s + _PACK_CHUNK)
+            rowmax.scatter_reduce_(0, seg[s:e], residual(s, e).abs().amax(dim=1), "amax")
+        inv127 = torch.tensor(np.float32(1.0 / 127.0), device=device)
+        scales = torch.where(rowmax > 0, rowmax * inv127, torch.ones_like(rowmax))
+        inv = torch.reciprocal(scales)
+        for s in range(0, P, _PACK_CHUNK):
+            e = min(P, s + _PACK_CHUNK)
+            codes = torch.round(residual(s, e) * inv[seg[s:e]][:, None]).clamp_(-127, 127)
+            v[slots_dev[s:e], :d] = codes.to(torch.int8)
+    else:
+        for s in range(0, P, _PACK_CHUNK):
+            e = min(P, s + _PACK_CHUNK)
+            v[slots_dev[s:e], :d] = vec_source(s, e).to(sd)
     ids = torch.full((Cpad * pad,), -1, dtype=torch.int32, device=device)
     ids[slots_dev] = torch.from_numpy(flat_ids).to(device)
-    return v.reshape(Cpad, pad, d_pad), ids.reshape(Cpad, pad)
+    return v.reshape(Cpad, pad, d_pad), ids.reshape(Cpad, pad), scales
 
 
 @dataclasses.dataclass
@@ -194,11 +235,12 @@ class PaddedView:
     of a (Cpad, pad, d_pad) device array; d is zero-padded to a multiple of
     128 (zeros cancel in every metric because queries are padded alike)."""
 
-    centroids: torch.Tensor  # (Cpad, d_pad) storage dtype
+    centroids: torch.Tensor  # (Cpad, d_pad) storage dtype (f32 for int8 slabs)
     cent_valid: torch.Tensor  # (Cpad,) bool
     lens: torch.Tensor  # (Cpad,) int32
     ids2d: torch.Tensor  # (Cpad, pad) int32 (-1 = padding)
     vectors3d: torch.Tensor  # (Cpad, pad, d_pad) storage dtype
+    scales: torch.Tensor  # (Cpad,) f32 per-posting dequant scales (1.0 = none)
     pad: int
     d_pad: int
     max_dup: int = 8
@@ -358,15 +400,19 @@ class SpannIndex:
             def source(s, e):
                 return torch.from_numpy(np.asarray(flat_vecs_all[s:e], np.float32)).to(dev)
         sd = self.policy.storage_dtype
-        vecs_dev, ids_dev = _pack_slabs(source, flat_ids_all, slots, Cpad, pad, d, d_pad, sd,
-                                        dev)
+        cent_dev = torch.from_numpy(cent).to(dev)
+        vecs_dev, ids_dev, scales_dev = _pack_slabs(
+            source, flat_ids_all, slots, Cpad, pad, d, d_pad, sd, dev, cent=cent_dev[:, :d])
         self._mult_hint = max(self._mult_hint, _max_multiplicity(all_ids))
         self._padded_view = PaddedView(
-            centroids=torch.from_numpy(cent).to(dev).to(sd),
+            # int8 storage routes on f32 centroids (the reference's
+            # _cast_centroids): every distance stays in real units.
+            centroids=cent_dev if self.policy.quantized else cent_dev.to(sd),
             cent_valid=torch.from_numpy(valid).to(dev),
             lens=torch.from_numpy(lens).to(dev),
             ids2d=ids_dev,
             vectors3d=vecs_dev,
+            scales=scales_dev,
             pad=pad,
             d_pad=d_pad,
             max_dup=self._dedup_bound(),
@@ -389,14 +435,16 @@ class SpannIndex:
         batch_size: Optional[int] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Batched ANN search.  Returns (ids (Q, k) int64, dists (Q, k) f32);
-        id -1 marks an empty slot (fewer than k reachable candidates)."""
+        id -1 marks an empty slot (fewer than k reachable candidates).
+
+        ``search.query_wire`` picks how query batches cross to the device:
+        f32; ``"bfloat16"`` (the search runs on the bf16-rounded queries);
+        or ``"int8"`` (per-query codes ``rint(q / s)`` with
+        ``s = max|q| / 127``, dequantized on the device as ``codes * s``).
+        Results are the exact search at the staged coordinates."""
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         if queries.shape[1] != self.dim:
             raise ValueError(f"query dim {queries.shape[1]} != index dim {self.dim}")
-        if self.config.search.query_wire not in (None, "float32"):
-            raise NotImplementedError(
-                "reduced query wires are not ported (ROADMAP queue 1: query wires)"
-            )
         metrics.inc("search.queries", queries.shape[0])
         if nprobe is None:
             nprobe = self.config.search.nprobe or k  # reference: nprobe == k
@@ -409,7 +457,7 @@ class SpannIndex:
         qpad[:, : self.dim] = queries
         out_i, out_d = [], []
         for s in range(0, queries.shape[0], bs):
-            qb = torch.from_numpy(qpad[s : s + bs]).to(self.device)
+            qb = self._stage_queries(qpad[s : s + bs])
             qi, qd = _search_padded(qb, view, k=int(k), nprobe=eff_nprobe, metric=self.metric,
                                     prune_factor=prune_factor)
             out_i.append(qi)
@@ -420,6 +468,20 @@ class SpannIndex:
             torch.cat(out_i).cpu().numpy().astype(np.int64),
             torch.cat(out_d).cpu().numpy(),
         )
+
+    def _stage_queries(self, a: np.ndarray) -> torch.Tensor:
+        """One padded query batch as f32 on the device, through the
+        configured wire, with the JAX package's arithmetic."""
+        wire = self.config.search.query_wire
+        if wire == "bfloat16":
+            return torch.from_numpy(a).to(torch.bfloat16).to(self.device).to(torch.float32)
+        if wire == "int8":
+            s = np.abs(a).max(axis=1, keepdims=True) / np.float32(127.0)
+            s = np.maximum(s, np.float32(1e-30)).astype(np.float32)
+            codes = np.clip(np.rint(a / s), -127, 127).astype(np.int8)
+            return (torch.from_numpy(codes).to(self.device).to(torch.float32)
+                    * torch.from_numpy(s).to(self.device))
+        return torch.from_numpy(a).to(self.device)
 
     def find_k_nearest_neighbor_spann(self, query, k: int) -> Optional[List[PointData]]:
         """Single-query reference-parity API: nprobe = k and 1.2x pruning;

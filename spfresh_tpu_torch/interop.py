@@ -6,7 +6,9 @@ host — its ``postings`` dict (cluster id -> (ids, vectors)), its
 returns an equivalent port ``SpannIndex`` on ``device``.  Nothing here
 imports ``jax``: the caller hands over plain arrays.  Together with the
 format-compatible ``save``/``load`` this lets both packages search the same
-index.
+index.  Every storage dtype carries over: the slab view, int8 codes and
+scales included, is a pure function of the postings and centroids, and the
+port packs it as the JAX package does.
 """
 
 from __future__ import annotations

@@ -1,10 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes``::
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
+them at once, and the objects are linked into ONE shared library with a
+plain C interface, loaded with ``ctypes``::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/libspfresh_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <tmp>/<name>.o csrc/<name>.cu      # each, in parallel
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/kernels/libspfresh_kernels_<hash>.so <tmp>/*.o
 
 The library is built at first use and cached under ``build/kernels/`` in the
 checkout, keyed by a hash of the sources and flags, so a fresh checkout
@@ -29,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -58,37 +61,55 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libspfresh_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds) -> None:
+    """Run the commands concurrently; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the kernels if the cached library is missing; return its path."""
     out = _library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [os.path.join(objdir, src.stem + ".o") for src in sources()]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+              for src, obj in zip(sources(), objs)])
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
+            os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
     return out
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.spf_rerank.argtypes = [
-        p, p, p, p,          # queries, rows, vectors3d, out
+        p, p, p, p, p,       # queries (or centered queries), rows, scales, vectors3d, out
         i, i, i, i, i,       # Q, nprobe, Cpad, pad, d_pad
-        i, i,                # metric, bf16 slabs
+        i, i,                # metric, slab dtype (0 f32, 1 bf16, 2 int8)
         p,                   # stream
     ]
     lib.spf_rerank.restype = i
+    lib.spf_window_scan.argtypes = [
+        p, p, p,             # caug, qaug, out
+        i, i, i,             # Q, Cpad, d_pad
+        i,                   # bf16 rank
+        p,                   # stream
+    ]
+    lib.spf_window_scan.restype = i
     lib.spf_replica_topk.argtypes = [
         p, p, p, p,          # X, base, cents, db (nullable)
         p, p,                # scratch: x2 (n,), cn2 (C,)

@@ -11,11 +11,14 @@ from __future__ import annotations
 
 import torch
 
-from spfresh_tpu_torch.ops.distances import pairwise_distance
+from spfresh_tpu_torch.ops.distances import EUCLIDEAN, canonical_metric, pairwise_distance
 
-# Centroid counts past this take the windowed scan kernel in the JAX package
-# (ops/topk.py:79-89); see centroid_topk.
+# Centroid counts past this leave the dense (Q, C) scan + top-k for the
+# windowed scan (Euclidean, nprobe <= 128) or the chunked scan; see
+# centroid_topk.
 LARGE_C_THRESHOLD = 32_768
+# Centroid rows per step of ``chunked_centroid_topk``, as in the JAX package.
+CENTROID_CHUNK = 8192
 
 _LOW32 = 0xFFFFFFFF
 
@@ -74,22 +77,51 @@ def smallest_k_unique(dists: torch.Tensor, ids: torch.Tensor, k: int, max_dup: i
     return vals[..., :k], cand_ids[..., :k]
 
 
+def chunked_centroid_topk(qf, centroids, cent_valid, nprobe: int, metric: str = EUCLIDEAN):
+    """Centroid scan + running top-nprobe over ``CENTROID_CHUNK``-row tiles
+    of the (C, d) centroid matrix: each step folds a (Q, chunk) distance
+    block into the running best via a (nprobe + chunk)-column tie-stable
+    top-k, so the (Q, C) matrix never exists.  Exact: every centroid is
+    scanned.  Probes with no valid centroid come back as (+inf, 0).
+    Returns (dists, indices) (Q, nprobe)."""
+    C = centroids.shape[0]
+    Q = qf.shape[0]
+    dev = qf.device
+    chunk = min(CENTROID_CHUNK, C)
+    best_d = torch.full((Q, nprobe), float("inf"), dtype=torch.float32, device=dev)
+    best_i = torch.zeros((Q, nprobe), dtype=torch.int64, device=dev)
+    for start in range(0, C, chunk):
+        block = centroids[start : start + chunk]
+        D = pairwise_distance(qf, block, metric)
+        D = torch.where(cent_valid[start : start + chunk][None, :], D,
+                        torch.full_like(D, float("inf")))
+        col = torch.arange(start, start + block.shape[0], device=dev)
+        cat_d = torch.cat([best_d, D], dim=1)
+        cat_i = torch.cat([best_i, col.expand(Q, -1)], dim=1)
+        best_d, idx = smallest_k(cat_d, nprobe)
+        best_i = torch.gather(cat_i, 1, idx)
+    return best_d, best_i
+
+
 def centroid_topk(qf: torch.Tensor, centroids: torch.Tensor, cent_valid, nprobe: int,
                   metric: str):
-    """Stage-1 probe: dense (Q, C) distance scan + top-nprobe.  ``cent_valid``
-    may be None (all rows valid).
+    """Stage-1 probe used by the search: the dense (Q, C) scan + top-nprobe
+    for ordinary centroid counts; past ``LARGE_C_THRESHOLD`` the windowed
+    scan (Euclidean, nprobe <= 128) or the chunked scan (nprobe <= 1024).
+    ``cent_valid`` may be None (all rows valid).
 
-    Past ``LARGE_C_THRESHOLD`` centroids the JAX package switches to a
-    windowed scan kernel; on CUDA that kernel is not ported yet, so the call
-    raises there instead of running a different algorithm."""
+    The JAX package takes the windowed route only on a TPU.  Here the route
+    depends on (C, nprobe, metric) alone: a CPU tensor runs the same
+    algorithm through the plain versions of its kernels."""
     C = centroids.shape[0]
-    if C > LARGE_C_THRESHOLD and centroids.device.type == "cuda":
-        raise NotImplementedError(
-            f"{C} centroids exceed LARGE_C_THRESHOLD={LARGE_C_THRESHOLD}: the "
-            "windowed centroid scan kernel is not ported yet (ROADMAP queue 2: "
-            "ops/pallas/centroid_scan.py::pallas_centroid_window_scan)"
-        )
+    if cent_valid is None:
+        cent_valid = torch.ones(C, dtype=torch.bool, device=centroids.device)
+    if C > LARGE_C_THRESHOLD and nprobe <= 128 and canonical_metric(metric) == EUCLIDEAN:
+        from spfresh_tpu_torch.ops.centroid_scan import windowed_centroid_topk
+
+        return windowed_centroid_topk(qf, centroids, cent_valid, nprobe)
+    if C > LARGE_C_THRESHOLD and nprobe <= 1024:
+        return chunked_centroid_topk(qf, centroids, cent_valid, nprobe, metric)
     Dc = pairwise_distance(qf, centroids, metric)
-    if cent_valid is not None:
-        Dc = torch.where(cent_valid[None, :], Dc, torch.full_like(Dc, float("inf")))
+    Dc = torch.where(cent_valid[None, :], Dc, torch.full_like(Dc, float("inf")))
     return smallest_k(Dc, nprobe)

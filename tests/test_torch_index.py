@@ -203,15 +203,14 @@ def test_config_round_trips_between_packages(tmp_path):
 
 def test_unported_options_raise(tmp_path):
     data, queries = _mixture(4, 300, 4)
-    with pytest.raises(NotImplementedError, match="int8"):
-        SpannIndex(Config.from_dict({"storage_dtype": "int8"}))
     raw = _raw(tmp_path)
     raw["build_sample_rows"] = 100
     with pytest.raises(NotImplementedError, match="out-of-core"):
         SpannIndexBuilder(Config.from_dict(raw)).with_data(data).build(save=False)
+    with pytest.raises(ValueError, match="query_wire"):
+        Config.from_dict(_raw(tmp_path, query_wire="float16"))
     idx = SpannIndexBuilder(Config.from_dict(_raw(tmp_path, query_wire="bfloat16"))).with_data(
         data).build(save=False)
-    with pytest.raises(NotImplementedError, match="query wire"):
-        idx.search(queries, 5)
+    assert idx.search(queries, 5)[0].shape == (4, 5)  # the bf16 wire is ported
     with pytest.raises(ValueError, match="query dim"):
         idx.search(queries[:, :5], 5)

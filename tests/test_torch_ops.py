@@ -148,8 +148,7 @@ def test_centroid_topk_matches_jax(with_valid):
 def test_dtype_policy():
     assert DtypePolicy("bfloat16").storage_dtype == torch.bfloat16
     assert DtypePolicy().storage_dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="int8"):
-        DtypePolicy("int8")
+    assert DtypePolicy("int8").storage_dtype == torch.int8  # residual IVF-SQ8
     with pytest.raises(ValueError):
         DtypePolicy("float16")
 
@@ -186,7 +185,7 @@ def test_build_raises_without_nvcc(monkeypatch):
 def test_build_cache_key_covers_sources():
     path = _build._library_path()
     assert path.parent == _build.BUILD_DIR
-    assert [p.name for p in _build.sources()] == ["replica.cu", "rerank.cu"]
+    assert [p.name for p in _build.sources()] == ["centroid_scan.cu", "replica.cu", "rerank.cu"]
     assert path.name.startswith("libspfresh_kernels_") and path.suffix == ".so"
 
 
