@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the spfresh_tpu_torch main path once on one CUDA card.
+"""Drive the spfresh_tpu_torch main paths once on one CUDA card.
 
     python3 chip_smoke.py            # all phases, one card, exits 0 on success
 
@@ -25,15 +25,38 @@ Phases, each printing a line:
               queries against the same view searched on the CPU with the
               plain versions, the device-time breakdown, and int8 against
               a bf16 build of the same corpus.
-6. exact    — a 20k f32 index: full-probe search must have recall exactly 1.0.
+6. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
+              d 960, 16,384 queries, seed 12345), a Manhattan bf16 build:
+              the L1/Linf pairwise kernel runs the build's assignments,
+              the closure pass, stage 1 and the ground truth; the sweep
+              to recall@10 >= 0.90, the bf16 rerank against its plain
+              version on the phase's slabs (d_pad 1,024) and stage-1 rows,
+              and the device-time breakdown.
+7. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
+              sweep is printed (no target: Chebyshev plateaus on this data)
+              and the rerank checked on the phase's slabs at nprobe 48.
+8. outofcore — benchmarks/outofcore_build_bench.py's corpus (8,388,608 x 96,
+              a memmap under build/) built out-of-core through
+              Config.build_sample_rows (sample 1,048,576, tile 262,144, cap
+              256, bf16): one nearest-centroid launch per tile, the replica
+              kernel with db supplied; the budget invariants, both kernels
+              against their plain versions on the build's first tile (the
+              nearest centroid with the sample fit's centroids, the replica
+              top-k with db supplied and the final centroids), and a sweep of
+              16,384 queries through the windowed stage 1.
+9. exact    — a 20k f32 index: full-probe search must have recall exactly 1.0
+              (Euclidean; Manhattan and Chebyshev at d 960, where a miss is
+              allowed only as a tie, shown in f64).
 
-Any failure raises, so the exit code is non-zero.  The last two lines are
-the kernel report and {"ok": true, "device": {...}}.
+Any failure raises, so the exit code is non-zero.  The last three lines are
+the card's name and power limit, the kernel report and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import subprocess
 import sys
 import tempfile
@@ -46,15 +69,31 @@ REPLACES = {
     "replica": "spfresh_tpu/ops/pallas/replica.py:412",
     "centroid_scan": "spfresh_tpu/ops/pallas/centroid_scan.py:94",
     "rerank_int8": "spfresh_tpu/ops/pallas/rerank.py:117",
+    "pairwise": "spfresh_tpu/ops/pallas/pairwise.py:58",
+    "nearest_centroid": "spfresh_tpu/ops/pallas/replica.py:347",
 }
 SOURCES = {
     "rerank": "spfresh_tpu_torch/csrc/rerank.cu",
     "replica": "spfresh_tpu_torch/csrc/replica.cu",
     "centroid_scan": "spfresh_tpu_torch/csrc/centroid_scan.cu",
     "rerank_int8": "spfresh_tpu_torch/csrc/rerank.cu",
+    "pairwise": "spfresh_tpu_torch/csrc/pairwise.cu",
+    "nearest_centroid": "spfresh_tpu_torch/csrc/replica.cu",
 }
+# The card's published peaks (H100 SXM data sheet, dense): the bound of a
+# kernel is the larger of its bytes over HBM_BPS and its operations over the
+# peak of their type.
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12    # CUDA cores
+BF16_FLOPS = 989e12  # tensor cores
+PAIRWISE_RTOL, PAIRWISE_ATOL = 1e-5, 1e-4  # tests/test_pallas_pairwise.py: L1 sum order
+GIST_D, GIST_LATENT = 960, 32
+OC_N, OC_D, OC_SAMPLE, OC_TILE = 8_388_608, 96, 1_048_576, 262_144
 RERANK_RTOL = 1e-5   # f32 sums of 128 terms in another order
 REPLICA_RTOL = 1e-4  # expansion-form ranks, f32, another summation order
+# Nearest-centroid distances |x|^2 + |c|^2 - 2 x.c: f32 sums of d products in
+# another order, so the error is relative to |x|^2 + |c|^2, not to D.
+NEAREST_RTOL = 1e-5
 # Window-minimum ranks |c|^2 - 2 q.c: f32 sums of 128 products in another
 # order.  A rank is a difference of terms of the size of |c|^2, so its
 # error is relative to that size, not to the (possibly cancelled) rank.
@@ -87,6 +126,15 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float, peak: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over HBM_BPS and the
+    operations over ``peak``, in ms, and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def mixture(seed: int, n: int, nq: int, d: int = 128, spread: float = 0.7):
     """The bench corpus: Gaussian mixture with max(64, n // 1000) centers,
     queries from the same mixture."""
@@ -97,6 +145,26 @@ def mixture(seed: int, n: int, nq: int, d: int = 128, spread: float = 0.7):
     def draw(m):
         a = rng.integers(0, n_centers, size=m)
         return (centers[a] + spread * rng.standard_normal((m, d))).astype(np.float32)
+
+    return draw(n), draw(nq)
+
+
+def latent_mixture(seed: int, n: int, nq: int, d: int = GIST_D, latent: int = GIST_LATENT,
+                   spread: float = 0.7):
+    """bench.py's --latent-dim corpus (bench.py:305-327): a mixture of
+    max(64, n // 1000) centers in ``latent`` dimensions, embedded into d
+    by a fixed projection, plus 0.01 ambient noise; queries from the same
+    mixture.  The same expressions, so the same arrays for the same seed."""
+    rng = np.random.default_rng(seed)
+    n_centers = max(64, n // 1000)
+    proj = rng.standard_normal((latent, d)).astype(np.float32) / np.sqrt(latent)
+    centers = rng.standard_normal((n_centers, latent)).astype(np.float32)
+
+    def draw(m):
+        a = rng.integers(0, n_centers, size=m)
+        lat = centers[a] + spread * rng.standard_normal((m, latent))
+        amb = 0.01 * rng.standard_normal((m, d))
+        return (lat.astype(np.float32) @ proj + amb).astype(np.float32)
 
     return draw(n), draw(nq)
 
@@ -143,7 +211,14 @@ def phase_kernels(torch, report):
         f"max_rel_err={rel:.3e} max_abs_err={float(err.max()):.3e} (rtol {RERANK_RTOL}) "
         f"kernel={ms:.4f} ms ({gbps:.0f} GB/s slab reads) plain={plain_ms:.4f} ms; "
         f"all 3 metrics x f32/bf16 agree at Q=512")
-    report["rerank"] = {"max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms}
+    # Bytes: the slabs these rows probe, each read once, queries, rows and
+    # the output; operations: subtract, multiply, add per slab element.
+    probed = int(torch.unique(rows).numel())
+    nbytes = probed * pad * d_pad * 2 + Q * d_pad * 4 + Q * nprobe * 4 + Q * nprobe * pad * 4
+    log(f"kernel rerank: the rows probe {probed} of {cpad} slabs")
+    report["rerank"] = {"max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": None,
+                        **bound(nbytes, 3 * Q * nprobe * pad * d_pad, F32_FLOPS)}
     del slabs, got, want, err
 
     # Kernel 2: n points of the bench mixture, C medoid-like centroids,
@@ -174,11 +249,16 @@ def phase_kernels(torch, report):
         f"admitted={admitted} near_tie_rows={tie_rows} max_rank_rel_err={max_rel:.3e} "
         f"max_rank_abs_err={max_abs:.3e} (rtol {REPLICA_RTOL}) kernel={ms:.4f} ms "
         f"({tflops:.2f} TFLOP/s) plain={plain_ms:.4f} ms")
-    report["replica"] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    # Two dot products per (point, centroid) pair on bf16 inputs.
+    report["replica"] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": None,
+                         **bound((n + C) * d * 2 + n * 4 + n * n_extra * 8, 4 * n * C * d,
+                                 BF16_FLOPS)}
     del X, cents, base
 
     kernel_centroid_scan(torch, report)
     kernel_rerank_int8(torch, report)
+    kernel_pairwise(torch, report)
 
 
 def kernel_centroid_scan(torch, report):
@@ -222,8 +302,10 @@ def kernel_centroid_scan(torch, report):
         worst[mode] = (max_abs, ms, plain_ms)
     # The large phase ranks in f32 (an int8 index routes on f32 centroids).
     _, ms, plain_ms = worst["f32"]
+    nbytes = (cpad + Q) * d_pad * 4 + Q * (cpad // 128) * 4
     report["centroid_scan"] = {"max_abs_err": max(w[0] for w in worst.values()), "ms": ms,
-                               "plain_ms": plain_ms}
+                               "plain_ms": plain_ms, "library_ms": None,
+                               **bound(nbytes, 2 * Q * cpad * d_pad, F32_FLOPS)}
 
 
 def kernel_rerank_int8(torch, report):
@@ -258,9 +340,65 @@ def kernel_rerank_int8(torch, report):
             f"(rtol {RERANK_RTOL}) kernel={ms:.4f} ms ({gbps:.0f} GB/s slab reads) "
             f"plain={plain_ms:.4f} ms")
         parts.append((metric, float(err.max()), ms, plain_ms))
-    # Times are the Euclidean ones, the metric the main path runs.
+    # Times are the Euclidean ones, the metric the main path runs.  Bytes:
+    # the probed int8 slabs once, the centered queries, queries, rows,
+    # scales and the output; operations: dequantize, subtract, multiply, add.
+    probed = int(torch.unique(rows).numel())
+    log(f"kernel rerank_int8: the rows probe {probed} of {cpad} slabs")
+    nbytes = (probed * pad * d_pad + Q * nprobe * d_pad * 4 + Q * d_pad * 4 + Q * nprobe * 8
+              + Q * nprobe * pad * 4)
     report["rerank_int8"] = {"max_abs_err": max(p[1] for p in parts), "ms": parts[0][2],
-                             "plain_ms": parts[0][3]}
+                             "plain_ms": parts[0][3], "library_ms": None,
+                             **bound(nbytes, 4 * Q * nprobe * pad * d_pad, F32_FLOPS)}
+
+
+def kernel_pairwise(torch, report):
+    """The L1/Linf kernel at the Manhattan phase's stage-1 shape (Q 8,192 x
+    C 9,945 x d 960), both metrics, f32 and bf16 inputs: Chebyshev must be
+    bit-equal to the plain version (a maximum is order-free), Manhattan
+    within PAIRWISE_RTOL / PAIRWISE_ATOL (another summation order).
+    torch.cdist with p=1 (on f32 copies) is the library yardstick."""
+    from spfresh_tpu_torch.ops import pairwise
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(3)
+    Q, C, d = 8192, 9945, GIST_D
+    x32 = torch.randn((Q, d), generator=g, device=dev)
+    y32 = torch.randn((C, d), generator=g, device=dev)
+    worst, times = 0.0, {}
+    for metric in ("Manhattan", "Chebyshev"):
+        for dt in (torch.float32, torch.bfloat16):
+            x, y = x32.to(dt), y32.to(dt)
+            got = pairwise.l1_linf_pairwise(x, y, metric)
+            want = pairwise.l1_linf_pairwise_plain(x, y, metric)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            if metric == "Chebyshev":
+                assert torch.equal(got, want), f"pairwise {metric} {dt}: not bit-equal"
+            else:
+                over = err > PAIRWISE_ATOL + PAIRWISE_RTOL * want.abs()
+                assert not bool(over.any()), (
+                    f"pairwise {metric} {dt}: {int(over.sum())} entries outside rtol "
+                    f"{PAIRWISE_RTOL} atol {PAIRWISE_ATOL}")
+            worst = max(worst, float(err.max()))
+            ms = cuda_ms(torch, lambda: pairwise.l1_linf_pairwise(x, y, metric), 5)
+            plain_ms = cuda_ms(torch, lambda: pairwise.l1_linf_pairwise_plain(x, y, metric), 1)
+            p = 1.0 if metric == "Manhattan" else float("inf")
+            lib_ms = cuda_ms(torch, lambda: torch.cdist(x32, y32, p=p), 3)
+            tflops = 3 * Q * C * d / (ms * 1e-3) / 1e12
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            log(f"kernel pairwise: Q={Q} C={C} d={d} {metric} {name} "
+                f"max_abs_err={float(err.max()):.3e} (Chebyshev bit-equal, Manhattan rtol "
+                f"{PAIRWISE_RTOL} atol {PAIRWISE_ATOL}) kernel={ms:.4f} ms "
+                f"({tflops:.2f} TFLOP/s as 3 n m d) plain={plain_ms:.4f} ms "
+                f"cdist(p={p}, f32)={lib_ms:.4f} ms")
+            times[(metric, name)] = (ms, plain_ms, lib_ms, x.element_size())
+            del got, want, err
+    # The Manhattan phase's stage 1 runs bf16 queries against bf16 centroids.
+    ms, plain_ms, lib_ms, size = times[("Manhattan", "bf16")]
+    report["pairwise"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms,
+                          **bound((Q + C) * d * size + Q * C * 4, 3 * Q * C * d, F32_FLOPS)}
 
 
 def replica_compare(X, base, C, bt, ki, kr, pi, pr):
@@ -311,9 +449,10 @@ def best_qps(torch, index, queries, nprobe: int) -> float:
     return len(queries) / min(times)
 
 
-def sweep(torch, index, queries, gt, tag: str, target: float = 0.90):
+def sweep(torch, index, queries, gt, tag: str, target: float | None = 0.90):
     """nprobe sweep to recall@10 >= ``target``: (nprobe, recall, qps, ids)
-    of the first point that clears it, or None."""
+    of the first point that clears it, or None.  ``target`` None runs and
+    prints the whole sweep."""
     from spfresh_tpu_torch.eval import recall_at_k
 
     for nprobe in (2, 4, 8, 16, 24, 32, 48, 64):
@@ -321,7 +460,7 @@ def sweep(torch, index, queries, gt, tag: str, target: float = 0.90):
         rec = recall_at_k(ids, gt, 10)
         qps = best_qps(torch, index, queries, nprobe)
         log(f"{tag}: nprobe={nprobe} recall@10={rec:.4f} qps={qps:.1f} (best of 3)")
-        if rec >= target:
+        if target is not None and rec >= target:
             return nprobe, rec, qps, ids
     return None
 
@@ -389,6 +528,281 @@ def phase_main(torch, n: int, nq: int, report) -> None:
         for name, c in counts.items():
             report[name]["launches"] = c
         profile_search(torch, index, queries, nprobe)
+
+
+def phase_metric(torch, metric: str, n: int, nq: int, report, target) -> None:
+    """A Manhattan or Chebyshev bf16 build of the GIST-width latent corpus
+    through SpannIndexBuilder on the card, ground truth on the card, and
+    the nprobe sweep (to recall@10 >= ``target``, or printed in full when
+    ``target`` is None).  The L1/Linf kernel must run in the phase."""
+    from spfresh_tpu_torch.index import Config, brute_force_search
+    from spfresh_tpu_torch.ops import pairwise
+
+    tag = metric.lower()
+    t0 = time.perf_counter()
+    data, queries = latent_mixture(12345, n, nq)
+    log(f"{tag}: corpus n={n} d={GIST_D} latent={GIST_LATENT} nq={nq} made in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    cfg = Config.from_dict({
+        "clustering_params": {
+            "distance_metric": metric, "initialization_method": "KMeans++",
+            "initial_k": 16, "desired_cluster_size": 256, "rng_seed": 42,
+        },
+        "storage_dtype": "bfloat16",
+        "search": {"query_batch_size": 8192},
+    })
+    pairwise.launches = 0
+    index, view = build_logged(torch, cfg, data, tag)
+    t0 = time.perf_counter()
+    _, gt = brute_force_search(data, queries, 10, metric=metric, device=DEVICE, batch_size=4096)
+    log(f"{tag}: exact ground truth on the card in {time.perf_counter() - t0:.2f} s")
+    best = sweep(torch, index, queries, gt, tag, target=target)
+    launches = pairwise.launches
+    log(f"{tag}: L1/Linf pairwise kernel launches in the phase: {launches}")
+    assert launches > 0, "the L1/Linf kernel did not run"
+    kernel_rerank_view(torch, view, queries, best[0] if best else 48, metric, tag)
+    if target is None:
+        return
+    assert best is not None, f"{tag}: recall@10 >= {target} not reached within nprobe <= 64"
+    nprobe, rec, qps, ids = best
+    assert_no_duplicates(ids)
+    log(f"{tag}: recall point nprobe={nprobe} recall@10={rec:.4f} qps={qps:.1f}; "
+        "no result row repeats an id")
+    report["pairwise"]["launches"] = launches
+    profile_search(torch, index, queries, nprobe, tag=f"profile {tag}")
+
+
+def kernel_rerank_view(torch, view, queries, nprobe: int, metric: str, tag: str) -> None:
+    """The float rerank at a metric phase's own shape: the phase's bf16
+    slabs (d_pad 1,024), its first query batch and the rows its stage 1
+    probes at ``nprobe``, against the plain version within RERANK_RTOL.
+    At d_pad 1,024 each lane walks 8 16-byte chunks of a row and stages
+    the query in 8 passes, which the main shape (d_pad 128) never runs."""
+    from spfresh_tpu_torch.ops import rerank
+    from spfresh_tpu_torch.ops.topk import centroid_topk
+
+    dev = torch.device(DEVICE)
+    Q = min(8192, len(queries))
+    qpad = torch.zeros((Q, view.d_pad), device=dev)
+    qpad[:, : queries.shape[1]] = torch.from_numpy(queries[:Q]).to(dev)
+    _, rows = centroid_topk(qpad.to(view.centroids.dtype), view.centroids, view.cent_valid,
+                            nprobe, metric)
+    rows = rows.to(torch.int32)
+    slabs = view.vectors3d
+    got = rerank.padded_rerank_distances(qpad, rows, slabs, metric)
+    want = rerank.padded_rerank_distances_plain(qpad, rows, slabs, metric)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    rel = float((err / want.abs().clamp_min(1.0)).max())
+    equal = bool(torch.equal(got, want))
+    del got, want, err
+    assert rel <= RERANK_RTOL, f"{tag}: rerank {metric} rel err {rel} > {RERANK_RTOL}"
+    ms = cuda_ms(torch, lambda: rerank.padded_rerank_distances(qpad, rows, slabs, metric), 5)
+    plain_ms = cuda_ms(torch, lambda: rerank.padded_rerank_distances_plain(
+        qpad, rows, slabs, metric), 1)
+    _, pad, d_pad = slabs.shape
+    probed = int(torch.unique(rows).numel())
+    gbps = Q * nprobe * pad * d_pad * slabs.element_size() / (ms * 1e-3) / 1e9
+    log(f"{tag}: kernel rerank at the phase's shape: Q={Q} nprobe={nprobe} pad={pad} "
+        f"d_pad={d_pad} Cpad={slabs.shape[0]} {slabs.dtype} {metric} max_rel_err={rel:.3e} "
+        f"(rtol {RERANK_RTOL}) bit_equal={equal} kernel={ms:.4f} ms ({gbps:.0f} GB/s slab "
+        f"reads; the rows probe {probed} slabs) plain={plain_ms:.4f} ms")
+
+
+def write_corpus(path, n: int, d: int, spread: float, seed: int):
+    """benchmarks/outofcore_build_bench.py's gen_corpus: a mixture of
+    max(64, min(n // 1000, 65536)) centers written to a memmap in 2^20-row
+    chunks; returns the memmap opened read-only."""
+    rng = np.random.default_rng(seed)
+    n_centers = max(64, min(n // 1000, 65536))
+    centers = rng.standard_normal((n_centers, d)).astype(np.float32)
+    mm = np.memmap(path, dtype=np.float32, mode="w+", shape=(n, d))
+    for s in range(0, n, 1 << 20):
+        e = min(s + (1 << 20), n)
+        a = rng.integers(0, n_centers, e - s)
+        mm[s:e] = centers[a] + spread * rng.standard_normal((e - s, d)).astype(np.float32)
+    mm.flush()
+    del mm
+    return np.memmap(path, dtype=np.float32, mode="r", shape=(n, d))
+
+
+def phase_outofcore(torch, n: int, nq: int, report) -> None:
+    """The out-of-core build of the bench's corpus through
+    Config.build_sample_rows, its invariants, the nearest-centroid and
+    replica kernels against their plain versions on a real tile, and a
+    sweep through the windowed stage 1."""
+    import math
+    from pathlib import Path
+
+    from spfresh_tpu_torch.index import Config, SpannIndexBuilder, brute_force_search
+    from spfresh_tpu_torch.ops import centroid_scan, replica, topk
+
+    path = Path(__file__).resolve().parent / "build" / "oc_corpus.f32"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        data = write_corpus(path, n, OC_D, 0.7, 12345)
+        rng = np.random.default_rng(12345 + 1)
+        qrows = rng.choice(n, size=nq, replace=False)
+        queries = np.asarray(data[np.sort(qrows)]) + 0.1 * rng.standard_normal(
+            (nq, OC_D)).astype(np.float32)
+        log(f"outofcore: corpus n={n} d={OC_D} ({n * OC_D * 4 / 2**30:.2f} GiB memmap) and "
+            f"{nq} queries made in {time.perf_counter() - t0:.2f} s (host)")
+        cap = 256
+        cfg = Config.from_dict({
+            "clustering_params": {
+                "distance_metric": "Euclidean", "initialization_method": "KMeans++",
+                "initial_k": 16, "desired_cluster_size": cap, "rng_seed": 42,
+            },
+            "storage_dtype": "bfloat16",
+            "build_sample_rows": OC_SAMPLE,
+            "build_tile_rows": OC_TILE,
+            "search": {"query_batch_size": 8192},
+        })
+        replica.launches = 0
+        replica.nearest_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        builder = SpannIndexBuilder(cfg, device=DEVICE).with_data(data)
+        index = builder.build(save=False)
+        t_build = time.perf_counter() - t0
+        counts = {"nearest_centroid": replica.nearest_launches, "replica": replica.launches}
+        result = builder.outofcore
+        log(f"outofcore: build wall={t_build:.3f} s clusters={index.num_clusters} "
+            f"stored={index.num_vectors} (x{index.num_vectors / n:.4f}) sample={result.sample_rows} "
+            f"splits={result.num_splits}; kernel launches {counts}")
+        log("outofcore: build phases " + " ".join(
+            f"{k}={v:.3f}" for k, v in sorted(index.build_profile.items(), key=lambda kv: -kv[1])))
+        tiles = math.ceil(n / OC_TILE)
+        assert counts["nearest_centroid"] == tiles, (counts, tiles)
+        assert counts["replica"] >= tiles, counts  # the sample fit's pass, then one per tile
+        report["nearest_centroid"] = {"launches": counts["nearest_centroid"]}
+
+        # Invariants: one base posting per row, each posting within its budget.
+        base = result.base
+        C = len(result.clusters)
+        assert base.shape == (n,) and base.min() >= 0 and base.max() < C
+        limit = math.ceil(cfg.replica_overflow * cap)
+        sizes = np.array([len(c) for c in result.clusters])
+        assert sizes.max() <= limit, f"a posting holds {sizes.max()} > {limit} members"
+        cls = np.repeat(np.arange(C, dtype=np.int64), sizes)
+        pts = np.concatenate([c.points for c in result.clusters])
+        member = np.zeros(n, np.int64)
+        np.add.at(member, pts, 1)
+        pair = np.sort(cls * n + pts)
+        want = base.astype(np.int64) * n + np.arange(n)
+        found = pair[np.minimum(np.searchsorted(pair, want), len(pair) - 1)] == want
+        assert found.all(), f"{int((~found).sum())} rows miss their base posting"
+        assert member.min() >= 1 and member.max() <= cfg.max_replicas
+        log(f"outofcore: every row sits in its base posting and in 1..{member.max()} postings; "
+            f"largest posting {sizes.max()} <= ceil({cfg.replica_overflow} * {cap}) = {limit}")
+
+        kernel_nearest(torch, data, result, report)
+        kernel_replica_tile(torch, data, index, result, cfg.to_clustering_params())
+
+        t0 = time.perf_counter()
+        view = index.padded_view()
+        torch.cuda.synchronize()
+        log(f"outofcore: padded_view from the host corpus in {time.perf_counter() - t0:.2f} s "
+            f"slabs={tuple(view.vectors3d.shape)} {view.vectors3d.dtype}")
+        assert index.num_clusters > topk.LARGE_C_THRESHOLD
+        t0 = time.perf_counter()
+        _, gt = brute_force_search(data, queries, 10, device=DEVICE, batch_size=4096)
+        log(f"outofcore: exact ground truth on the card in {time.perf_counter() - t0:.2f} s")
+        centroid_scan.launches = 0
+        sweep(torch, index, queries, gt, "outofcore", target=None)
+        assert centroid_scan.launches > 0, "the windowed stage 1 did not run"
+    finally:
+        path.unlink(missing_ok=True)
+
+
+def kernel_nearest(torch, data, result, report) -> None:
+    """The nearest-centroid kernel on the build's first tile against its
+    plain version, with the centroid set the streamed base pass launched
+    with (the sample fit's, bf16, as the build streams them).  Ids must
+    agree except at f32 near-ties: a differing row's two centroids must be
+    within TIE_TOL of (|x|^2 + |c|^2) in f64.  Where the ids agree, the
+    distances must agree within NEAREST_RTOL of |x|^2 + |c|^2."""
+    from spfresh_tpu_torch.ops import replica
+
+    dev = torch.device(DEVICE)
+    cents = torch.from_numpy(np.asarray(data[result.sample_centroid_rows]))
+    cents = cents.to(dev).to(torch.bfloat16)
+    X = torch.from_numpy(np.array(data[:OC_TILE])).to(dev).to(torch.bfloat16)
+    n, C, d = X.shape[0], cents.shape[0], X.shape[1]
+    kb, kd = replica.nearest_centroid(X, cents)
+    pb, pd = replica.nearest_centroid_plain(X, cents)
+    torch.cuda.synchronize()
+    kb, kd, pb, pd = (t.cpu().numpy() for t in (kb, kd, pb, pd))
+    Xh = X.float().cpu().numpy().astype(np.float64)
+    Ch = cents.float().cpu().numpy().astype(np.float64)
+    same = kb == pb
+    scale = (Xh ** 2).sum(1) + (Ch[kb] ** 2).sum(1)  # the size of the expansion's terms
+    err = np.abs(kd - pd)[same]
+    max_abs = float(err.max())
+    max_rel = float((err / scale[same]).max())
+    assert max_rel <= NEAREST_RTOL, (
+        f"nearest distances: rel err {max_rel} of |x|^2+|c|^2 > {NEAREST_RTOL}")
+    gaps = []
+    for r in np.flatnonzero(~same):
+        dk = float(((Xh[r] - Ch[kb[r]]) ** 2).sum())
+        dp = float(((Xh[r] - Ch[pb[r]]) ** 2).sum())
+        gaps.append(abs(dk - dp) / scale[r])
+        assert gaps[-1] <= TIE_TOL, f"nearest row {r}: ids {kb[r]} vs {pb[r]} without a near-tie"
+    ms = cuda_ms(torch, lambda: replica.nearest_centroid(X, cents), 5)
+    plain_ms = cuda_ms(torch, lambda: replica.nearest_centroid_plain(X, cents), 2)
+    tflops = 2 * n * C * d / (ms * 1e-3) / 1e12
+    log(f"kernel nearest_centroid: n={n} C={C} (the sample fit's) d={d} bf16 ids "
+        f"differing={int((~same).sum())} (all f64 near-ties, max gap "
+        f"{max(gaps, default=0.0):.2e} of |x|^2+|c|^2) max_abs_err={max_abs:.3e} "
+        f"max_rel_err={max_rel:.3e} of |x|^2+|c|^2 (rtol {NEAREST_RTOL}) kernel={ms:.4f} ms "
+        f"({tflops:.2f} TFLOP/s) plain={plain_ms:.4f} ms")
+    report["nearest_centroid"].update({
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        **bound((n + C) * d * 2 + n * 8, 2 * n * C * d, BF16_FLOPS)})
+
+
+def kernel_replica_tile(torch, data, index, result, params) -> None:
+    """The replica kernel as the streamed replica pass launches it: the
+    build's first tile, its final (post-rebalance) centroids, the tile's
+    base clusters and ``db`` supplied, the build's n_extra, threshold and
+    SOAR lambda; against the plain version with replica_compare."""
+    from spfresh_tpu_torch.ops import replica
+
+    dev = torch.device(DEVICE)
+    cents = torch.from_numpy(np.stack([index.centroids[c] for c in sorted(index.centroids)]))
+    cents = cents.to(dev).to(torch.bfloat16)
+    X = torch.from_numpy(np.array(data[:OC_TILE])).to(dev).to(torch.bfloat16)
+    n, C, d = X.shape[0], cents.shape[0], X.shape[1]
+    base = torch.from_numpy(np.ascontiguousarray(result.base[:OC_TILE], np.int32)).to(dev)
+    db = ((X.float() - cents[base.long()].float()) ** 2).sum(1)
+    n_extra = min(params.max_replicas - 1, C - 1)
+    bt = float(np.float32(params.boundary_threshold))
+    lam = float(params.soar_lambda or 0.0)
+
+    def kernel():
+        return replica.replica_topk(X, base, cents, bt, n_extra, db=db, soar_lambda=lam)
+
+    def plain():
+        return replica.replica_topk_plain(X, base, cents, bt, n_extra, db=db, soar_lambda=lam)
+
+    ki, kr = kernel()
+    pi, pr = plain()
+    torch.cuda.synchronize()
+    ki, kr, pi, pr = (t.cpu().numpy() for t in (ki, kr, pi, pr))
+    tie_rows, max_abs, max_rel = replica_compare(
+        X.float().cpu().numpy().astype(np.float64), base.cpu().numpy(),
+        cents.float().cpu().numpy().astype(np.float64), bt, ki, kr, pi, pr)
+    assert max_rel <= REPLICA_RTOL, f"replica (db given) rank rel err {max_rel} > {REPLICA_RTOL}"
+    admitted = int(np.isfinite(kr).sum())
+    assert admitted > n // 10, f"only {admitted} replicas admitted: degenerate check"
+    ms = cuda_ms(torch, kernel, 3)
+    plain_ms = cuda_ms(torch, plain, 1)
+    log(f"kernel replica (db given): n={n} C={C} (the final set) d={d} bf16 n_extra={n_extra} "
+        f"lambda={lam} admitted={admitted} near_tie_rows={tie_rows} "
+        f"max_rank_rel_err={max_rel:.3e} max_rank_abs_err={max_abs:.3e} (rtol {REPLICA_RTOL}) "
+        f"kernel={ms:.4f} ms ({4 * n * C * d / (ms * 1e-3) / 1e12:.2f} TFLOP/s) "
+        f"plain={plain_ms:.4f} ms")
 
 
 def phase_large(torch, n: int, nq: int, report) -> None:
@@ -509,7 +923,8 @@ def profile_search(torch, index, queries, nprobe: int, top: int = 10,
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
             if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
     rows += [(e.key, e.self_device_time_total / 1e3, e.count) for e in kernels
-             if "rerank_kernel<" in e.key or "window_scan_kernel<" in e.key]
+             if any(k in e.key for k in ("rerank_kernel<", "window_scan_kernel<",
+                                         "l1_linf_kernel<"))]
     log(f"{tag}: nprobe={nprobe}, 3 searches of {len(queries)} queries: wall={wall_ms:.1f} ms "
         f"device={device_ms:.1f} ms (idle {100 * (1 - device_ms / wall_ms):.1f}% of wall)")
     for name, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
@@ -551,11 +966,52 @@ def phase_exact(torch) -> None:
     log(f"exact: n=20000 f32 clusters={index.num_clusters} full-probe recall@10={rec} "
         f"(200 queries, no pruning); nprobe=8 ids vs the saved index on the CPU: "
         f"{differ} of {got.size} differ")
+    for metric in ("Manhattan", "Chebyshev"):
+        exact_metric(torch, metric)
+
+
+def exact_metric(torch, metric: str) -> None:
+    """Full-probe search of a 20k x 960 f32 index must return the exact
+    top-10 ids.  A miss is allowed only as a tie with the 10th true
+    neighbour: exact in f32 for Chebyshev (both sides take the maximum of
+    the same f32 |x - y|), within f32 rounding (rel 1e-6, in f64) for
+    Manhattan, whose sums run in another order."""
+    from spfresh_tpu_torch.eval import recall_at_k
+    from spfresh_tpu_torch.index import Config, SpannIndexBuilder, brute_force_search
+
+    data, queries = latent_mixture(7, 20_000, 200)
+    cfg = Config.from_dict({
+        "clustering_params": {"distance_metric": metric, "initialization_method": "KMeans++",
+                              "initial_k": 16, "desired_cluster_size": 256, "rng_seed": 3},
+        "storage_dtype": "float32",
+    })
+    index = SpannIndexBuilder(cfg, device=DEVICE).with_data(data).build(save=False)
+    ids, _ = index.search(queries, 10, nprobe=index.num_clusters)
+    gd, gt = brute_force_search(data, queries, 10, metric=metric, device=DEVICE)
+    assert_no_duplicates(ids)
+    ties = []
+    for q in range(len(queries)):
+        for j in set(ids[q].tolist()) - set(gt[q].tolist()):
+            diff = np.abs(data[j] - queries[q])  # f32, as both sides compute it
+            kth = gd[q, -1]
+            if metric == "Chebyshev":
+                dj = float(diff.max())
+                assert dj == float(kth), f"exact {metric}: query {q} id {j} is no tie"
+            else:
+                dj = float(np.abs(data[j].astype(np.float64) - queries[q]).sum())
+                dk = float(np.abs(data[gt[q, -1]].astype(np.float64) - queries[q]).sum())
+                assert abs(dj - dk) <= 1e-6 * dk, f"exact {metric}: query {q} id {j} is no tie"
+            ties.append((q, j, dj, float(kth)))
+    rec = recall_at_k(ids, gt, 10)
+    log(f"exact: n=20000 d={GIST_D} f32 {metric} clusters={index.num_clusters} full-probe "
+        f"id-recall@10={rec} (200 queries); misses {len(ties)}, all ties: {ties[:5]}")
 
 
 def main() -> int:
     import torch
 
+    # The builders' progress (the out-of-core phases as they end) on stderr.
+    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs the port on a GPU only")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -574,14 +1030,24 @@ def main() -> int:
 
     assert not torch.backends.cuda.matmul.allow_tf32, "plain versions must not run in TF32"
     report = {}
-    phase_kernels(torch, report)
-    phase_main(torch, 1_000_000, 16_384, report)
-    phase_large(torch, LARGE_N, 16_384, report)
-    phase_exact(torch)
+    runs = {
+        "kernels": lambda: phase_kernels(torch, report),
+        "main": lambda: phase_main(torch, 1_000_000, 16_384, report),
+        "large": lambda: phase_large(torch, LARGE_N, 16_384, report),
+        "manhattan": lambda: phase_metric(torch, "Manhattan", 1_000_000, 16_384, report, 0.90),
+        "chebyshev": lambda: phase_metric(torch, "Chebyshev", 262_144, 16_384, report, None),
+        "outofcore": lambda: phase_outofcore(torch, OC_N, 16_384, report),
+        "exact": lambda: phase_exact(torch),
+    }
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        run()
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         **{k: report[name][k] for k in ("launches", "max_abs_err", "ms", "plain_ms")}}
+         **{k: report[name][k] for k in keys}}
         for name in REPLACES
     ]
     print(smi)  # the card's name and power limit, as nvidia-smi gives them

@@ -2,14 +2,15 @@
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A second package beside ``spfresh_tpu`` (the JAX reference).  It imports
-``torch`` and never ``jax``.  Every public entry point takes an explicit
-``device``; a CPU tensor runs each kernel's plain PyTorch version, a CUDA
+``torch`` and never ``jax``.  Every public entry point takes ``device``,
+default ``"cuda"`` (raising where there is no card); ``device="cpu"`` runs
+on the CPU.  A CPU tensor runs each kernel's plain PyTorch version, a CUDA
 tensor launches the kernel (built from ``csrc/`` on first use) or raises.
 
 Entry points::
 
     from spfresh_tpu_torch.index import Config, SpannIndexBuilder
-    index = SpannIndexBuilder(cfg, device="cuda").with_data(data).build(save=False)
+    index = SpannIndexBuilder(cfg).with_data(data).build(save=False)
     ids, dists = index.search(queries, k=10, nprobe=8)
 """
 

@@ -14,9 +14,12 @@ The build runs:
    on the host (``_split_level_multiway_host``), with the JAX package's
    seeds, tie-breaks and Philox draws, so the same initial seeds give the
    same clusters.
-4. One closure-replica pass (``ops.replica.replica_topk``: the CUDA kernel
-   on a CUDA device, its plain version on the CPU) and the host per-cluster
-   replica budget.
+4. One closure-replica pass and the host per-cluster replica budget.
+   Euclidean with at most 8 replicas takes ``ops.replica.replica_topk``
+   (the CUDA kernel on a CUDA device, its plain version on the CPU);
+   Manhattan, Chebyshev and more replicas take the unfused
+   ``replica_topk_elementwise``, whose distance blocks launch the L1/Linf
+   kernel on a CUDA device.
 
 Not ported: the mesh builds, the device-resident subdivision, and the
 ``nested``/binary split paths (ROADMAP queue 1).
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from spfresh_tpu_torch.clustering.utils import budget_sort, masked_means, next_pow2
+from spfresh_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from spfresh_tpu_torch.core.dtypes import bf16_round_np
 from spfresh_tpu_torch.ops.distances import (
     EUCLIDEAN,
@@ -38,7 +42,7 @@ from spfresh_tpu_torch.ops.distances import (
     pairwise_distance,
     rowwise_distance,
 )
-from spfresh_tpu_torch.ops.replica import replica_topk, replica_topk_plain
+from spfresh_tpu_torch.ops.replica import MAX_EXTRA, replica_topk, replica_topk_elementwise
 from spfresh_tpu_torch.utils import metrics
 from spfresh_tpu_torch.utils.profiling import PhaseTimer
 
@@ -280,9 +284,10 @@ class HierarchicalClustering:
     the JAX package rounds its corpus upload, and the f32 result is copied
     to ``device``."""
 
-    def __init__(self, params: ClusteringParams, data, device: torch.device | str = "cpu"):
+    def __init__(self, params: ClusteringParams, data,
+                 device: torch.device | str = DEFAULT_DEVICE):
         self.params = params
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         host = np.asarray(data, np.float32)
         if host.ndim != 2:
             raise ValueError(f"data must be 2-d, got shape {host.shape}")
@@ -398,15 +403,11 @@ class HierarchicalClustering:
             base_dev = torch.from_numpy(base.astype(np.int32)).to(self.device)
         bt = float(np.float32(self.params.boundary_threshold))
         with timer.phase("replica/device+pull", block=True):
-            if metric == EUCLIDEAN:
+            if metric == EUCLIDEAN and n_extra <= MAX_EXTRA:
                 idx, dists = replica_topk(X, base_dev, cents, bt, n_extra, soar_lambda=soar)
-            elif self.device.type == "cpu":
-                idx, dists = replica_topk_plain(X, base_dev, cents, bt, n_extra, metric=metric)
             else:
-                raise NotImplementedError(
-                    f"the {metric} replica pass on {self.device.type} is not ported "
-                    "(ROADMAP queue 1: Manhattan and Chebyshev end to end)"
-                )
+                idx, dists = replica_topk_elementwise(X, base_dev, cents, bt, n_extra, metric,
+                                                      soar_lambda=soar)
             metrics.inc(f"build.replica_engine.{self.device.type}")
             idx, dists = _np(idx), _np(dists)
         with timer.phase("replica/host_budget"):

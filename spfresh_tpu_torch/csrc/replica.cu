@@ -287,7 +287,168 @@ cudaError_t launch_all(const void* X, const int* base, const void* cents, const 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Nearest centroid: the top-1 sibling of replica_kernel.
+//
+// Replaces the TPU kernel spfresh_tpu/ops/pallas/replica.py ::
+// pallas_nearest_centroid (kernel _make_assign_kernel), the out-of-core
+// build's base assignment.  For every point p:
+//   D_j = max(|c_j|^2 + |p|^2 - 2 c_j.p, 0)
+//   base = argmin_j D_j (equal D to the lowest j), db = D_base.
+//
+// What bounds it on Hopper: arithmetic, 2*n*C*d flops of one dot product
+// per (point, centroid) pair against n*d + (n/128)*C*d bytes read.
+//
+// What the design does about it: replica_kernel's register-tiled f32 GEMM
+// with one accumulator instead of two, so a block owns 128 points (8 per
+// thread) and each thread does 64 FMAs per four 16-byte shared-memory
+// reads; its epilogue keeps one running (D, id) per point in registers with
+// the lexicographic order of insert(), merged over the 16 lanes that share
+// a point by shuffles.  C is a run-time argument; columns past C are
+// masked, so no centroid padding is needed.  Tensor cores are later work.
+
+constexpr int kNBM = 128;  // points per block
+constexpr int kNT = 8;     // points (and centroids) per thread
+
+// Row of a thread's i-th of 8 values: two runs of 4, at 4 g and 64 + 4 g.
+__device__ __forceinline__ int tile_row(int g, int i) { return (i < 4 ? 0 : 60) + 4 * g + i; }
+
+// (v, i) before (bv, bi) in the lexicographic order of insert().
+__device__ __forceinline__ bool before(float v, int i, float bv, int bi) {
+  return v < bv || (v == bv && i < bi);
+}
+
+template <typename S>
+__global__ void __launch_bounds__(NT)
+nearest_kernel(const typename S::T* __restrict__ X, const typename S::T* __restrict__ cents,
+               const float* __restrict__ x2g, const float* __restrict__ cn2g,
+               int* __restrict__ out_idx, float* __restrict__ out_dist, int n, int C, int d) {
+  __shared__ __align__(16) float Xs[BK][kNBM + 4];  // point slice, k-major
+  __shared__ __align__(16) float Cs[BK][BN + 4];    // centroid-tile slice
+  __shared__ float cn2_s[BN];
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;  // point group
+  const int tx = tid % 16;  // centroid group; the 16 lanes of a half-warp differ here
+  const int p0 = blockIdx.x * kNBM;
+
+  float x2[kNT], best_v[kNT];
+  int best_i[kNT];
+#pragma unroll
+  for (int i = 0; i < kNT; ++i) {
+    const int p = p0 + tile_row(ty, i);
+    x2[i] = p < n ? x2g[p] : 0.f;
+    best_v[i] = INFINITY;
+    best_i[i] = kIdNone;
+  }
+
+  for (int c0 = 0; c0 < C; c0 += BN) {
+    float acc[kNT][kNT];
+#pragma unroll
+    for (int i = 0; i < kNT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) acc[i][j] = 0.f;
+    __syncthreads();  // previous tile's readers are done with cn2_s
+    if (tid < BN) cn2_s[tid] = (c0 + tid < C) ? cn2g[c0 + tid] : 0.f;
+
+    for (int k0 = 0; k0 < d; k0 += BK) {
+      for (int e = tid; e < kNBM * BK; e += NT) {
+        const int r = e / BK, kk = e % BK, p = p0 + r, c = c0 + r, k = k0 + kk;
+        Xs[kk][r] = (p < n && k < d) ? S::get(X, (size_t)p * d + k) : 0.f;
+        Cs[kk][r] = (c < C && k < d) ? S::get(cents, (size_t)c * d + k) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        const float4 xa = *reinterpret_cast<const float4*>(&Xs[kk][tile_row(ty, 0)]);
+        const float4 xb = *reinterpret_cast<const float4*>(&Xs[kk][tile_row(ty, 4)]);
+        const float4 ca = *reinterpret_cast<const float4*>(&Cs[kk][tile_row(tx, 0)]);
+        const float4 cb = *reinterpret_cast<const float4*>(&Cs[kk][tile_row(tx, 4)]);
+        const float xr[kNT] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+        const float cr[kNT] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
+#pragma unroll
+        for (int i = 0; i < kNT; ++i)
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) acc[i][j] = fmaf(xr[i], cr[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const int cl = tile_row(tx, j);
+      const int col = c0 + cl;
+      if (col >= C) continue;
+      const float cn2 = cn2_s[cl];
+#pragma unroll
+      for (int i = 0; i < kNT; ++i) {
+        const float D = fmaxf((cn2 + x2[i]) - 2.f * acc[i][j], 0.f);
+        if (before(D, col, best_v[i], best_i[i])) {
+          best_v[i] = D;
+          best_i[i] = col;
+        }
+      }
+    }
+  }
+
+  // The 16 threads sharing a point group are lanes of one half-warp.
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < kNT; ++i) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best_v[i], off);
+      const int oi = __shfl_xor_sync(0xffffffffu, best_i[i], off);
+      if (before(ov, oi, best_v[i], best_i[i])) {
+        best_v[i] = ov;
+        best_i[i] = oi;
+      }
+    }
+
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < kNT; ++i) {
+      const int p = p0 + tile_row(ty, i);
+      if (p < n) {
+        out_idx[p] = best_i[i];
+        out_dist[p] = best_v[i];
+      }
+    }
+  }
+}
+
+template <typename S>
+cudaError_t launch_nearest(const void* X, const void* cents, float* x2, float* cn2, int* oi,
+                           float* od, int n, int C, int d, cudaStream_t s) {
+  using T = typename S::T;
+  constexpr int kWarpsPerBlock = 8;
+  sqnorm_kernel<S><<<(n + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0, s>>>(
+      static_cast<const T*>(X), n, d, x2);
+  sqnorm_kernel<S><<<(C + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0, s>>>(
+      static_cast<const T*>(cents), C, d, cn2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  nearest_kernel<S><<<(unsigned)((n + kNBM - 1) / kNBM), NT, 0, s>>>(
+      static_cast<const T*>(X), static_cast<const T*>(cents), x2, cn2, oi, od, n, C, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// X (n, d) and cents (C, d): bf16 ? bfloat16 : float32, row-major.  x2 (n,),
+// cn2 (C,) f32 scratch.  out_idx (n,) i32, out_dist (n,) f32.
+extern "C" int spf_nearest_centroid(const void* X, const void* cents, void* x2, void* cn2,
+                                    void* out_idx, void* out_dist, int n, int C, int d, int bf16,
+                                    void* stream) {
+  if (n <= 0) return 0;
+  if (C <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* x2p = static_cast<float*>(x2);
+  float* cn2p = static_cast<float*>(cn2);
+  int* oi = static_cast<int*>(out_idx);
+  float* od = static_cast<float*>(out_dist);
+  return bf16 ? (int)launch_nearest<BF16>(X, cents, x2p, cn2p, oi, od, n, C, d, s)
+              : (int)launch_nearest<F32>(X, cents, x2p, cn2p, oi, od, n, C, d, s);
+}
 
 // X (n, d) and cents (C, d): bf16 ? bfloat16 : float32, row-major.  base (n,)
 // i32 in [0, C).  db (n,) f32 or null (computed).  x2 (n,), cn2 (C,) f32

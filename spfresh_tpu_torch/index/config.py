@@ -4,13 +4,13 @@ Same schema, keys, defaults and ``validate()`` as the JAX package, so a
 ``Config.to_dict()`` from either package loads in the other.  ``yaml`` is
 imported only inside ``from_file``: the GPU machine may not have it.
 
-Keys the port keeps for format compatibility but does not act on yet:
+The one key the port keeps for format compatibility but does not act on:
 ``search.engine`` (the port has one search pipeline: the slab rerank
-kernel on CUDA, its plain version on the CPU) and
-``build_sample_rows``/``build_tile_rows`` (the out-of-core build raises
-NotImplementedError).  ``storage_dtype: int8`` (residual IVF-SQ8) and the
-``search.query_wire`` values ``bfloat16`` and ``int8`` act as in the JAX
-package.
+kernel on CUDA, its plain version on the CPU).  ``build_sample_rows``
+(the out-of-core build: a sample fit, then streamed passes of
+``build_tile_rows`` rows, default 65,536, over a host corpus),
+``storage_dtype: int8`` (residual IVF-SQ8) and the ``search.query_wire``
+values ``bfloat16`` and ``int8`` act as in the JAX package.
 """
 
 from __future__ import annotations

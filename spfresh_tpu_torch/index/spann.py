@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from spfresh_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from spfresh_tpu_torch.core.dtypes import DtypePolicy
 from spfresh_tpu_torch.index.config import Config
 from spfresh_tpu_torch.index.posting_store import (
@@ -155,13 +156,14 @@ def _brute_force_2stage(corpus, queries, k: int, kc: int, metric: str, chunk: in
 
 
 def brute_force_search(corpus, queries, k: int, metric: str = "Euclidean",
-                       batch_size: int = 1024, device: torch.device | str = "cpu"):
+                       batch_size: int = 1024, device: torch.device | str = DEFAULT_DEVICE):
     """Exact top-k ground truth on ``device``: (dists (Q, k), ids (Q, k)).
 
     Up to 10k corpus rows the fully elementwise exact form is used; past
     that a two-stage scan (expansion prefilter to max(32k, 256) candidates
     for Euclidean, then the exact rerank) keeps intermediates bounded."""
     metric = canonical_metric(metric)
+    device = resolve_device(device)
     corpus = torch.as_tensor(np.asarray(corpus, np.float32)).to(device)
     queries = np.ascontiguousarray(queries, np.float32)
     n = corpus.shape[0]
@@ -250,7 +252,8 @@ class _LazyMemberVecs:
     """Posting member vectors materialized on first touch from the build
     corpus (``corpus[ids]``): a fresh build packs its slabs from the device
     corpus, so nothing host-side reads the replicated member vectors unless
-    a save or lookup touches them."""
+    a save or lookup touches them.  An out-of-core build's corpus is a host
+    array or ``np.memmap``: a slice gathers only its own rows."""
 
     __slots__ = ("_corpus", "_ids", "_mat")
 
@@ -276,6 +279,8 @@ class _LazyMemberVecs:
         return len(self._ids)
 
     def __getitem__(self, key):
+        if self._mat is None and isinstance(key, slice):
+            return self._corpus[self._ids[key]]
         return self._m()[key]
 
 
@@ -283,9 +288,10 @@ class SpannIndex:
     """SPANN index with host posting state and a device slab view on
     ``device``."""
 
-    def __init__(self, config: Optional[Config] = None, device: torch.device | str = "cpu"):
+    def __init__(self, config: Optional[Config] = None,
+                 device: torch.device | str = DEFAULT_DEVICE):
         self.config = config or Config()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.metric = canonical_metric(self.config.distance_metric)
         self.policy = DtypePolicy(self.config.storage_dtype)
         self.dim: Optional[int] = None
@@ -308,11 +314,14 @@ class SpannIndex:
 
     # -- construction ------------------------------------------------------
 
-    def create_posting_lists(self, clusters, data: np.ndarray, corpus_dev=None) -> None:
+    def create_posting_lists(self, clusters, data: np.ndarray, corpus_dev=None,
+                             lazy_host: bool = False) -> None:
         """Postings from fitted clusters: one bulk id concatenation.
         ``corpus_dev`` is the build corpus already on ``self.device``; when
         given, the first view packs its slabs from it on the device and the
-        host member vectors stay lazy."""
+        host member vectors stay lazy.  ``lazy_host`` keeps them lazy views
+        over the host corpus without a device corpus (out-of-core builds:
+        the corpus may not fit in host memory twice)."""
         data = np.asarray(data, dtype=np.float32)
         self.dim = data.shape[1]
         all_ids = (np.concatenate([np.asarray(c.points, np.int64) for c in clusters])
@@ -321,7 +330,7 @@ class SpannIndex:
         corpus_ok = corpus_dev is not None and corpus_dev.shape[0] > (
             int(all_ids.max()) if all_ids.size else -1
         )
-        lazy = fresh and corpus_ok
+        lazy = fresh and (corpus_ok or lazy_host)
         all_vecs = _LazyMemberVecs(data, all_ids) if lazy else data[all_ids]
         pos = 0
         for c in clusters:
@@ -563,7 +572,7 @@ class SpannIndex:
 
     @classmethod
     def load(cls, directory: str, config: Optional[Config] = None,
-             device: torch.device | str = "cpu") -> "SpannIndex":
+             device: torch.device | str = DEFAULT_DEVICE) -> "SpannIndex":
         with open(os.path.join(directory, MANIFEST)) as f:
             manifest = json.load(f)
         cfg = config or Config.from_dict(manifest.get("config", {}))

@@ -18,6 +18,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from spfresh_tpu_torch.core.device import DEFAULT_DEVICE
 from spfresh_tpu_torch.index.config import Config
 from spfresh_tpu_torch.index.spann import SpannIndex
 
@@ -27,7 +28,7 @@ def from_jax_state(
     centroids: Mapping[int, Any],
     dim: int,
     config: Dict[str, Any],
-    device: torch.device | str = "cpu",
+    device: torch.device | str = DEFAULT_DEVICE,
 ) -> SpannIndex:
     """A port ``SpannIndex`` holding the given posting state."""
     if set(postings) != set(centroids):

@@ -120,6 +120,22 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,                   # stream
     ]
     lib.spf_replica_topk.restype = i
+    lib.spf_nearest_centroid.argtypes = [
+        p, p,                # X, cents
+        p, p,                # scratch: x2 (n,), cn2 (C,)
+        p, p,                # out idx (n,), out dist (n,)
+        i, i, i,             # n, C, d
+        i,                   # bf16 inputs
+        p,                   # stream
+    ]
+    lib.spf_nearest_centroid.restype = i
+    lib.spf_l1_linf_pairwise.argtypes = [
+        p, p, p,             # x, y, out
+        i, i, i,             # n, m, d
+        i, i,                # l1 (1 Manhattan, 0 Chebyshev), bf16 inputs
+        p,                   # stream
+    ]
+    lib.spf_l1_linf_pairwise.restype = i
     lib.spf_error_string.argtypes = [i]
     lib.spf_error_string.restype = ctypes.c_char_p
 

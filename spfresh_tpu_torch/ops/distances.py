@@ -8,7 +8,9 @@
   ``torch.matmul`` would round back to bf16.
 * The exact form (``exact=True``) and ``Manhattan``/``Chebyshev`` reduce
   the elementwise difference, tiled so the (tile, m, d) intermediate stays
-  bounded.
+  bounded.  On CUDA tensors, Manhattan and Chebyshev calls of at least
+  ``L1_LINF_KERNEL_OPS`` element operations launch the L1/Linf kernel
+  (``ops.pairwise``), where the JAX package launches its Pallas kernel.
 
 float32 matmuls run at full precision: TF32 is switched off for both
 matmuls and cuDNN when this module is imported, the counterpart of the
@@ -31,9 +33,10 @@ MANHATTAN = "Manhattan"
 CHEBYSHEV = "Chebyshev"
 METRICS: Sequence[str] = (EUCLIDEAN, MANHATTAN, CHEBYSHEV)
 
-# At or past this many n*m*d element ops the JAX package routes L1/Linf
-# pairwise distances through its Pallas kernel (distances.py:124-134).
-_L1_LINF_KERNEL_OPS = 1 << 22
+# At or past this many n*m*d element ops L1/Linf pairwise distances on a
+# CUDA tensor take the L1/Linf kernel, as the JAX package's take its Pallas
+# kernel (spfresh_tpu/ops/distances.py:124-134).
+L1_LINF_KERNEL_OPS = 1 << 22
 
 
 def canonical_metric(name: str) -> str:
@@ -80,6 +83,13 @@ def _elementwise_pairwise(x: torch.Tensor, y: torch.Tensor, metric: str,
     return out
 
 
+def takes_l1_linf_kernel(x, y, metric: str) -> bool:
+    """Whether ``pairwise_distance`` sends (x, y) to the L1/Linf kernel:
+    Manhattan or Chebyshev, CUDA tensors, n*m*d >= L1_LINF_KERNEL_OPS."""
+    return (metric in (MANHATTAN, CHEBYSHEV) and x.device.type == "cuda"
+            and x.shape[0] * y.shape[0] * x.shape[1] >= L1_LINF_KERNEL_OPS)
+
+
 def pairwise_distance(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -98,16 +108,12 @@ def pairwise_distance(
         raise ValueError(f"dimension mismatch: {x.shape[-1]} vs {y.shape[-1]}")
     if metric == EUCLIDEAN and not exact:
         return _sq_l2_pairwise(x, y)
-    if (
-        metric in (MANHATTAN, CHEBYSHEV)
-        and x.device.type == "cuda"
-        and x.shape[0] * y.shape[0] * x.shape[1] >= _L1_LINF_KERNEL_OPS
-    ):
-        raise NotImplementedError(
-            "L1/Linf pairwise distances at this size need the tiled L1/Linf "
-            "kernel, which is not ported yet (ROADMAP queue 2: "
-            "ops/pallas/pairwise.py::pallas_l1_linf_pairwise)"
-        )
+    if takes_l1_linf_kernel(x, y, metric):
+        from spfresh_tpu_torch.ops.pairwise import l1_linf_pairwise
+
+        if x.dtype != y.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+            x, y = x.to(ACCUM_DTYPE), y.to(ACCUM_DTYPE)
+        return l1_linf_pairwise(x, y, metric)
     return _elementwise_pairwise(x, y, metric, tile_n)
 
 

@@ -1,9 +1,19 @@
-"""Closure-replica top-k (counterpart of ``spfresh_tpu/ops/pallas/replica.py``,
-``pallas_replica_topk``).
+"""Closure-replica top-k and nearest centroid (counterparts of
+``spfresh_tpu/ops/pallas/replica.py``: ``pallas_replica_topk`` and
+``pallas_nearest_centroid``).
 
-``replica_topk`` launches the CUDA kernel in ``csrc/replica.cu`` for CUDA
-tensors and runs ``replica_topk_plain`` for CPU tensors; anything else
-raises.  Nothing on the CUDA build path calls the plain version.
+``replica_topk`` and ``nearest_centroid`` launch their CUDA kernels in
+``csrc/replica.cu`` for CUDA tensors and run ``replica_topk_plain`` and
+``nearest_centroid_plain`` for CPU tensors; anything else raises.  Nothing
+on a CUDA build path calls a plain version.
+
+``replica_topk_elementwise`` is the unfused closure pass of the JAX
+package (``_replica_pass_xla`` with ``_replica_select_from_dists``) and
+``chunked_nearest_centroid`` its chunked running argmin
+(``_oc_base_tile``): the routes of Manhattan and Chebyshev builds, whose
+distance blocks come from ``pairwise_distance`` (the L1/Linf kernel on
+CUDA), and, for the closure pass, of ``n_extra`` past the kernel's 8.
+The plain versions are their squared-L2 cases.
 """
 
 from __future__ import annotations
@@ -15,21 +25,32 @@ from spfresh_tpu_torch.ops.distances import EUCLIDEAN, pairwise_distance
 from spfresh_tpu_torch.ops.topk import smallest_k
 
 MAX_EXTRA = 8  # the kernel's register lists hold at most 8 replicas
-PLAIN_TILE_ELEMS = 1 << 28  # bound on each (t, C) workspace of the plain version
+# Bound on each (t, C) f32 workspace of the unfused closure pass: the JAX
+# package's ~1 GB rule, tile = 2^28 // C rows (hierarchical.py:1016,1032).
+PLAIN_TILE_ELEMS = 1 << 28
+# Centroid rows per step of the chunked running argmin: the JAX package's
+# _CENT_CHUNK, cut so a (rows, chunk) block holds at most ENTRY_BUDGET
+# values (its _ENTRY_BUDGET rule), but never below MIN_CENT_CHUNK columns.
+CENT_CHUNK = 8192
+ENTRY_BUDGET = 1 << 27
+MIN_CENT_CHUNK = 512
 
-# Kernel launches since the last reset (set to 0 to reset).
+# Kernel launches since the last reset (set to 0 to reset): the replica
+# kernel and the nearest-centroid kernel.
 launches = 0
+nearest_launches = 0
 
 
-def replica_topk_plain(X, base, cents, bt: float, n_extra: int, db=None,
-                       soar_lambda: float = 0.0, metric: str = EUCLIDEAN):
-    """Plain PyTorch version, the math of the reference's XLA closure pass
-    (``_final_replica_pass``): (t, C) distance blocks by the matmul
-    expansion, the closure mask, optional SOAR ranking and a tie-stable
-    top-``n_extra``.  Row tiles bound the two (t, C) workspaces to
-    ``PLAIN_TILE_ELEMS`` f32 values each.  ``metric`` serves the CPU build's L1/Linf closure pass; the
-    kernel is Euclidean only.  Returns (idx (n, n_extra) int32, rank (n, n_extra) f32); a
-    missing replica has rank +inf (its id is arbitrary)."""
+def replica_topk_elementwise(X, base, cents, bt: float, n_extra: int, metric: str = EUCLIDEAN,
+                             db=None, soar_lambda: float = 0.0):
+    """The unfused closure pass: per row group, ``D = pairwise_distance(X_g,
+    cents)`` and ``CC = pairwise_distance(cents[base_g], cents)``, then the
+    closure mask, optional SOAR ranking and a tie-stable top-``n_extra`` in
+    torch.  Row groups bound the two (t, C) workspaces to
+    ``PLAIN_TILE_ELEMS`` f32 values each.  ``db`` supplies dist(p, c_base);
+    None takes it from D.  Returns (idx (n, n_extra) int32, rank
+    (n, n_extra) f32); a missing replica has rank +inf (its id is
+    arbitrary)."""
     n = X.shape[0]
     C = cents.shape[0]
     row_tile = max(256, PLAIN_TILE_ELEMS // max(1, C))
@@ -53,6 +74,15 @@ def replica_topk_plain(X, base, cents, bt: float, n_extra: int, db=None,
         out_i[s:e] = idx.to(torch.int32)
         out_d[s:e] = vals
     return out_i, out_d
+
+
+def replica_topk_plain(X, base, cents, bt: float, n_extra: int, db=None,
+                       soar_lambda: float = 0.0):
+    """Plain PyTorch version of the kernel, the math of the reference's XLA
+    closure pass (``_final_replica_pass``): the unfused pass with distance
+    blocks by the squared-L2 matmul expansion."""
+    return replica_topk_elementwise(X, base, cents, bt, n_extra, EUCLIDEAN, db=db,
+                                    soar_lambda=soar_lambda)
 
 
 def _check(X, base, cents, n_extra: int, db) -> None:
@@ -117,3 +147,68 @@ def replica_topk(X: torch.Tensor, base: torch.Tensor, cents: torch.Tensor, bt: f
     _build.check(rc, "replica")
     launches += 1
     return idx, rank
+
+
+def chunked_nearest_centroid(X, cents, metric: str = EUCLIDEAN):
+    """The chunked running argmin of the JAX package's ``_oc_base_tile``:
+    (t, chunk) distance blocks by ``pairwise_distance``, a strict-< update
+    in ascending chunk order, so equal distances go to the lowest centroid
+    id.  The out-of-core base pass of Manhattan and Chebyshev (their blocks
+    take the L1/Linf kernel on CUDA).  Returns (base (n,) int32, db (n,)
+    f32)."""
+    n = X.shape[0]
+    chunk = max(MIN_CENT_CHUNK, min(CENT_CHUNK, ENTRY_BUDGET // max(1, n)))
+    best_d = torch.full((n,), float("inf"), dtype=torch.float32, device=X.device)
+    best_i = torch.zeros((n,), dtype=torch.int32, device=X.device)
+    for start in range(0, cents.shape[0], chunk):
+        D = pairwise_distance(X, cents[start : start + chunk], metric)
+        cmin, carg = torch.min(D, dim=1)  # the first minimum of each row
+        upd = cmin < best_d
+        best_d = torch.where(upd, cmin, best_d)
+        best_i = torch.where(upd, (carg + start).to(torch.int32), best_i)
+    return best_i, best_d
+
+
+def nearest_centroid_plain(X, cents):
+    """Plain PyTorch version of the nearest-centroid kernel: the chunked
+    running argmin with squared-L2 expansion blocks."""
+    return chunked_nearest_centroid(X, cents, EUCLIDEAN)
+
+
+def nearest_centroid(X: torch.Tensor, cents: torch.Tensor):
+    """Nearest centroid per row under squared L2: (base (n,) int32, db (n,)
+    f32), D = max(|c|^2 + |x|^2 - 2 x.c, 0) in f32, equal D to the lowest
+    centroid id.  ``X`` and ``cents`` share float32 or bfloat16."""
+    global nearest_launches
+    if X.ndim != 2 or cents.ndim != 2 or X.shape[1] != cents.shape[1]:
+        raise ValueError(f"expected X (n, d) and cents (C, d); got {tuple(X.shape)}, "
+                         f"{tuple(cents.shape)}")
+    if X.dtype != cents.dtype or X.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"X and cents must share float32 or bfloat16; got {X.dtype}, "
+                        f"{cents.dtype}")
+    if cents.shape[0] == 0:
+        raise ValueError("no centroids")
+    if X.device != cents.device:
+        raise ValueError("X and cents must be on one device")
+    if X.device.type == "cpu":
+        return nearest_centroid_plain(X, cents)
+    if X.device.type != "cuda":
+        raise ValueError(f"no nearest-centroid kernel for device {X.device}")
+    X, cents = X.contiguous(), cents.contiguous()
+    n, d = X.shape
+    C = cents.shape[0]
+    if max(n * d, C * d) >= 2**31:
+        raise ValueError("X or cents exceed 2^31 elements")
+    dev = X.device
+    base = torch.empty((n,), dtype=torch.int32, device=dev)
+    db = torch.empty((n,), dtype=torch.float32, device=dev)
+    x2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    cn2 = torch.empty((C,), dtype=torch.float32, device=dev)
+    rc = _build.library().spf_nearest_centroid(
+        X.data_ptr(), cents.data_ptr(), x2.data_ptr(), cn2.data_ptr(),
+        base.data_ptr(), db.data_ptr(), n, C, d, int(X.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(rc, "nearest centroid")
+    nearest_launches += 1
+    return base, db

@@ -9,6 +9,8 @@ from typing import Dict, Iterator, List, Tuple
 
 import torch
 
+from spfresh_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+
 
 class PhaseTimer:
     """Accumulating wall-clock timer keyed by phase name.
@@ -25,8 +27,8 @@ class PhaseTimer:
     >>> timer.totals()
     """
 
-    def __init__(self, device: torch.device | str = "cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device: torch.device | str = DEFAULT_DEVICE):
+        self.device = resolve_device(device)
         self._totals: Dict[str, float] = defaultdict(float)
         self._counts: Dict[str, int] = defaultdict(int)
 

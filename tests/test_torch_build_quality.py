@@ -132,7 +132,7 @@ def small():
     torch.set_num_threads(2)
     data, queries = chip_smoke.mixture(12345, N_SMALL, 200)
     labels = chip_smoke.mixture_blobs(12345, N_SMALL)
-    _, gt = brute_force_search(data, queries, 10)
+    _, gt = brute_force_search(data, queries, 10, device="cpu")
     raw = bench_config()
     ref = jax_fit(raw, data)
     want = build_quality(ref.clusters, labels, ref._host_data, queries, gt)

@@ -230,7 +230,8 @@ def test_search_over_windowed_route_equals_jax(jax_f32_index, monkeypatch, nprob
     """The port past its (patched) threshold against the JAX search on its
     own dense route: the same ids, and distances within f32 rounding."""
     data, queries, ref = jax_f32_index
-    port = from_jax_state(ref.postings, ref.centroids, ref.dim, ref.config.to_dict())
+    port = from_jax_state(ref.postings, ref.centroids, ref.dim, ref.config.to_dict(),
+                          device="cpu")
     monkeypatch.setattr(tt, "LARGE_C_THRESHOLD", 16)
     assert port.num_clusters > 16
     calls = []

@@ -72,9 +72,9 @@ def test_device_levels_match_host_levels(monkeypatch):
     data = _data(1)
     raw = _cfg("KMeans++", "float32", None)
     params = TConfig.from_dict(raw).to_clustering_params()
-    host = th.HierarchicalClustering(params, data).fit()
+    host = th.HierarchicalClustering(params, data, device="cpu").fit()
     monkeypatch.setattr(th, "_tail_rows_for", lambda platform, d: 0)
-    dev = th.HierarchicalClustering(params, data).fit()
+    dev = th.HierarchicalClustering(params, data, device="cpu").fit()
     assert dev._timer.totals() and any(n == "subdiv/kernel" for n, _, _ in dev._timer.totals())
     _assert_same_clusters(host, dev)
 
@@ -82,8 +82,8 @@ def test_device_levels_match_host_levels(monkeypatch):
 def test_port_seeding_is_deterministic():
     data = _data(2, n=1500)
     params = TConfig.from_dict(_cfg("KMeans++", "float32", None)).to_clustering_params()
-    a = th.HierarchicalClustering(params, data).fit()
-    b = th.HierarchicalClustering(params, data).fit()
+    a = th.HierarchicalClustering(params, data, device="cpu").fit()
+    b = th.HierarchicalClustering(params, data, device="cpu").fit()
     _assert_same_clusters(a, b)
     labels = a.labels()
     assert labels.shape == (1500,) and labels.min() >= 0 and labels.max() < len(a.clusters)
@@ -96,7 +96,7 @@ def test_unported_split_modes_raise():
     for kw in ({"replication": "nested"}, {"max_split_ways": 2}):
         params = th.ClusteringParams(desired_cluster_size=50, rng_seed=1, **kw)
         with pytest.raises(NotImplementedError):
-            th.HierarchicalClustering(params, data).fit()
+            th.HierarchicalClustering(params, data, device="cpu").fit()
 
 
 def test_params_validation_matches_reference():

@@ -63,7 +63,8 @@ def jax_built(tmp_path_factory):
 
 
 def _carry(jidx):
-    return from_jax_state(jidx.postings, jidx.centroids, jidx.dim, jidx.config.to_dict())
+    return from_jax_state(jidx.postings, jidx.centroids, jidx.dim, jidx.config.to_dict(),
+                          device="cpu")
 
 
 @pytest.mark.parametrize("nprobe", [3, 8, None])
@@ -97,7 +98,7 @@ def test_bf16_search_ids_equal_jax_padded_engine(jax_built):
 def test_full_probe_recall_is_exact(jax_built):
     data, queries, jidx = jax_built
     port = _carry(jidx["float32"])
-    _, gt = brute_force_search(data, queries, 10)
+    _, gt = brute_force_search(data, queries, 10, device="cpu")
     _, jgt = j_brute(data, queries, 10)
     np.testing.assert_array_equal(gt, jgt)
     ids, _ = port.search(queries, 10, nprobe=port.num_clusters)
@@ -108,7 +109,7 @@ def test_full_probe_recall_is_exact(jax_built):
 
 def test_two_stage_brute_force_matches_jax():
     data, queries = _mixture(1, 12_000, 20, d=16)
-    gd, gi = brute_force_search(data, queries, 5)
+    gd, gi = brute_force_search(data, queries, 5, device="cpu")
     wd, wi = j_brute(data, queries, 5)
     np.testing.assert_array_equal(gi, wi)
     np.testing.assert_allclose(gd, wd, rtol=1e-5)  # exact form, f32 summation order
@@ -119,7 +120,7 @@ def test_jax_saved_index_loads_in_port(jax_built, tmp_path, layout):
     data, queries, jidx = jax_built
     ref = jidx["float32"]
     ref.save(str(tmp_path / "j"), format=layout)
-    port = SpannIndex.load(str(tmp_path / "j"))
+    port = SpannIndex.load(str(tmp_path / "j"), device="cpu")
     assert port.num_clusters == ref.num_clusters and port.num_vectors == ref.num_vectors
     want, _ = ref.search(queries, 10, nprobe=6, engine="xla")
     got, _ = port.search(queries, 10, nprobe=6)
@@ -140,7 +141,7 @@ def test_port_saved_index_loads_in_jax(tmp_path, layout):
     want, _ = ref.search(queries, 10, nprobe=5, engine="xla")
     got, _ = port.search(queries, 10, nprobe=5)
     np.testing.assert_array_equal(got, want)
-    back = SpannIndex.load(str(tmp_path / "t"))
+    back = SpannIndex.load(str(tmp_path / "t"), device="cpu")
     got2, _ = back.search(queries, 10, nprobe=5)
     np.testing.assert_array_equal(got2, got)
 
@@ -158,7 +159,7 @@ def test_port_build_invariants(tmp_path, storage):
     assert view.vectors3d.dtype == (torch.bfloat16 if storage == "bfloat16" else torch.float32)
     assert view.d_pad == 128 and view.pad % 16 == 0
     ids, d = idx.search(queries, 10, nprobe=idx.num_clusters)
-    _, gt = brute_force_search(data, queries, 10)
+    _, gt = brute_force_search(data, queries, 10, device="cpu")
     rec = recall_at_k(ids, gt, 10)
     if storage == "float32":
         assert rec == 1.0
@@ -176,11 +177,11 @@ def test_readme_toy_example(tmp_path):
     cfg.output_path = str(tmp_path / "toy")
     data = np.array([[1.0, 2.0], [1.5, 2.5], [8.0, 8.0], [8.5, 8.5], [4.0, 4.0], [4.5, 4.5]],
                     dtype=np.float32)
-    index = SpannIndexBuilder(cfg).with_data(data).build(dim=2)
+    index = SpannIndexBuilder(cfg, device="cpu").with_data(data).build(dim=2)
     result = index.find_k_nearest_neighbor_spann(np.array([1.0, 2.0]), k=1)
     assert result[0].point_id == 0
     np.testing.assert_array_equal(result[0].vector, data[0])
-    loaded = SpannIndexBuilder(cfg).load(dim=2)
+    loaded = SpannIndexBuilder(cfg, device="cpu").load(dim=2)
     assert loaded.find_k_nearest_neighbor_spann(np.array([1.0, 2.0]), k=1)[0].point_id == 0
 
 
@@ -205,12 +206,12 @@ def test_unported_options_raise(tmp_path):
     data, queries = _mixture(4, 300, 4)
     raw = _raw(tmp_path)
     raw["build_sample_rows"] = 100
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        SpannIndexBuilder(Config.from_dict(raw)).with_data(data).build(save=False)
+    oc = SpannIndexBuilder(Config.from_dict(raw), device="cpu").with_data(data).build(save=False)
+    assert "oc/assign" in oc.build_profile  # the out-of-core build is ported
     with pytest.raises(ValueError, match="query_wire"):
         Config.from_dict(_raw(tmp_path, query_wire="float16"))
-    idx = SpannIndexBuilder(Config.from_dict(_raw(tmp_path, query_wire="bfloat16"))).with_data(
-        data).build(save=False)
+    idx = SpannIndexBuilder(Config.from_dict(_raw(tmp_path, query_wire="bfloat16")),
+                            device="cpu").with_data(data).build(save=False)
     assert idx.search(queries, 5)[0].shape == (4, 5)  # the bf16 wire is ported
     with pytest.raises(ValueError, match="query dim"):
         idx.search(queries[:, :5], 5)

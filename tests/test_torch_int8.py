@@ -54,7 +54,7 @@ def jax_built(tmp_path_factory):
 def _carry(jidx, **search):
     raw = jidx.config.to_dict()
     raw["search"].update(search)
-    return from_jax_state(jidx.postings, jidx.centroids, jidx.dim, raw)
+    return from_jax_state(jidx.postings, jidx.centroids, jidx.dim, raw, device="cpu")
 
 
 def _bits(a):
@@ -107,7 +107,7 @@ def test_int8_view_bit_identical_from_jax_state(jax_built):
 def test_int8_view_bit_identical_from_jax_saved_index(jax_built, tmp_path):
     _, _, jidx = jax_built
     jidx["int8"].save(str(tmp_path / "j"))
-    port = SpannIndex.load(str(tmp_path / "j"))
+    port = SpannIndex.load(str(tmp_path / "j"), device="cpu")
     assert port.policy.quantized
     _assert_views_equal(port.padded_view(), JIndex.load(str(tmp_path / "j")).padded_view())
 
@@ -119,7 +119,7 @@ def test_port_int8_build_packs_from_corpus_as_from_host(tmp_path):
     built = SpannIndexBuilder(Config.from_dict(_raw(tmp_path, "int8")), device="cpu").with_data(
         data).build(save=True)
     fresh = built.padded_view()
-    again = SpannIndex.load(str(tmp_path / "idx")).padded_view()
+    again = SpannIndex.load(str(tmp_path / "idx"), device="cpu").padded_view()
     for a, b in ((fresh.vectors3d, again.vectors3d), (fresh.scales, again.scales),
                  (fresh.ids2d, again.ids2d), (fresh.centroids, again.centroids)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

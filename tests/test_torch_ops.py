@@ -185,22 +185,31 @@ def test_build_raises_without_nvcc(monkeypatch):
 def test_build_cache_key_covers_sources():
     path = _build._library_path()
     assert path.parent == _build.BUILD_DIR
-    assert [p.name for p in _build.sources()] == ["centroid_scan.cu", "replica.cu", "rerank.cu"]
+    assert [p.name for p in _build.sources()] == ["centroid_scan.cu", "pairwise.cu", "replica.cu",
+                                                  "rerank.cu"]
     assert path.name.startswith("libspfresh_kernels_") and path.suffix == ".so"
 
 
+def _imports_reference(src: str) -> bool:
+    return any(pat in src for pat in ("import jax", "from jax", "import spfresh_tpu\n",
+                                      "import spfresh_tpu.", "from spfresh_tpu ",
+                                      "from spfresh_tpu."))
+
+
 def test_port_imports_without_jax():
-    """Every port module imports with jax blocked, and no source names it."""
+    """Every port module imports with jax and the JAX package blocked, and
+    neither the package nor chip_smoke.py names either."""
     pkg = os.path.join(REPO, "spfresh_tpu_torch")
     mods = []
     for root, _, files in os.walk(pkg):
         for f in files:
             if f.endswith(".py"):
                 src = open(os.path.join(root, f)).read()
-                assert "import jax" not in src and "from jax" not in src, f
+                assert not _imports_reference(src), f
                 rel = os.path.relpath(os.path.join(root, f), REPO)[:-3].replace(os.sep, ".")
                 mods.append(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
-    code = ("import sys; sys.modules['jax'] = None\n"
+    assert not _imports_reference(open(os.path.join(REPO, "chip_smoke.py")).read())
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['spfresh_tpu'] = None\n"
             + "".join(f"import {m}\n" for m in sorted(mods)) + "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
@@ -225,3 +234,28 @@ def test_chip_smoke_fails_without_the_package(tmp_path):
     out = _run_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("entry", ["builder", "index", "load", "brute_force", "clustering",
+                                   "interop", "timer"])
+def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
+    """Every entry point defaults to the card: without one, constructing it
+    with the default device raises instead of falling back to the CPU."""
+    from spfresh_tpu_torch.clustering.hierarchical import ClusteringParams, HierarchicalClustering
+    from spfresh_tpu_torch.index import Config, SpannIndex, SpannIndexBuilder, brute_force_search
+    from spfresh_tpu_torch.interop import from_jax_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = np.zeros((8, 4), np.float32)
+    build = {
+        "builder": lambda: SpannIndexBuilder(Config()),
+        "index": lambda: SpannIndex(Config()),
+        "load": lambda: SpannIndex.load(str(tmp_path)),
+        "brute_force": lambda: brute_force_search(data, data, 2),
+        "clustering": lambda: HierarchicalClustering(ClusteringParams(), data),
+        "interop": lambda: from_jax_state({}, {}, 4, {}),
+        "timer": lambda: PhaseTimer(),
+    }[entry]
+    (tmp_path / "manifest.json").write_text('{"config": {}}')  # what load reads first
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        build()
