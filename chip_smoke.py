@@ -16,7 +16,20 @@ Phases, each printing a line:
               sweep to recall@10 >= 0.90; asserts the rerank and replica
               kernels ran in it; then device time by operation
               (torch.profiler) over 3 searches at the recall point.
-5. large    — the same generator at 4,194,304 x 128 (4,194 centers) with
+5. live     — live updates on main's index through
+              spfresh_tpu_torch.lire.SpFreshIndex (LireConfig max 512, min
+              16, a store under build/ deleted after): benchmarks/
+              streaming_updates.py's traffic (20,000 inserts in batches of
+              512; 20,000 more, each batch then searched; deletes) plus
+              4,096 hot-spot inserts around one corpus point, so Split,
+              Reassign and Merge all run; flush().  Gates: the in-place
+              view searches as a full repack does (16,384 queries, nprobe
+              8), append and slab-rewrite updates and every LIRE op ran,
+              each surviving insert finds itself in its top 10, no deleted
+              or repeated id; recall before and after against brute force
+              on the mutated corpus.  Then 5,000 inserts and 2,000 deletes
+              on a 262,144-row int8 index and the same repack gate.
+6. large    — the same generator at 4,194,304 x 128 (4,194 centers) with
               int8 (IVF-SQ8) storage: more than 32,768 clusters, so stage 1
               takes the windowed centroid scan and the rerank its quantized
               path; ground truth, the nprobe sweep to recall@10 >= 0.80
@@ -24,18 +37,22 @@ Phases, each printing a line:
               phase, the ids through the dense stage 1 and of 1,000
               queries against the same view searched on the CPU with the
               plain versions, the device-time breakdown, and int8 against
-              a bf16 build of the same corpus.
-6. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
+              a bf16 build of the same corpus.  The expansion-form int8
+              scorer (rerank_int8mxu) then scores the phase's queries over
+              the phase's own int8 view (codes transposed to (C, d_pad,
+              pad)), is held to its plain version, and its top-10 per query
+              is compared with the elementwise int8 rerank's.
+7. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
               d 960, 16,384 queries, seed 12345), a Manhattan bf16 build:
               the L1/Linf pairwise kernel runs the build's assignments,
               the closure pass, stage 1 and the ground truth; the sweep
               to recall@10 >= 0.90, the bf16 rerank against its plain
               version on the phase's slabs (d_pad 1,024) and stage-1 rows,
               and the device-time breakdown.
-7. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
+8. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
               sweep is printed (no target: Chebyshev plateaus on this data)
               and the rerank checked on the phase's slabs at nprobe 48.
-8. outofcore — benchmarks/outofcore_build_bench.py's corpus (8,388,608 x 96,
+9. outofcore — benchmarks/outofcore_build_bench.py's corpus (8,388,608 x 96,
               a memmap under build/) built out-of-core through
               Config.build_sample_rows (sample 1,048,576, tile 262,144, cap
               256, bf16): one nearest-centroid launch per tile, the replica
@@ -44,7 +61,7 @@ Phases, each printing a line:
               nearest centroid with the sample fit's centroids, the replica
               top-k with db supplied and the final centroids), and a sweep of
               16,384 queries through the windowed stage 1.
-9. exact    — a 20k f32 index: full-probe search must have recall exactly 1.0
+10. exact   — a 20k f32 index: full-probe search must have recall exactly 1.0
               (Euclidean; Manhattan and Chebyshev at d 960, where a miss is
               allowed only as a tie, shown in f64).
 
@@ -71,6 +88,7 @@ REPLACES = {
     "rerank_int8": "spfresh_tpu/ops/pallas/rerank.py:117",
     "pairwise": "spfresh_tpu/ops/pallas/pairwise.py:58",
     "nearest_centroid": "spfresh_tpu/ops/pallas/replica.py:347",
+    "rerank_int8mxu": "spfresh_tpu/ops/pallas/rerank.py:376",
 }
 SOURCES = {
     "rerank": "spfresh_tpu_torch/csrc/rerank.cu",
@@ -79,6 +97,7 @@ SOURCES = {
     "rerank_int8": "spfresh_tpu_torch/csrc/rerank.cu",
     "pairwise": "spfresh_tpu_torch/csrc/pairwise.cu",
     "nearest_centroid": "spfresh_tpu_torch/csrc/replica.cu",
+    "rerank_int8mxu": "spfresh_tpu_torch/csrc/rerank_int8mxu.cu",
 }
 # The card's published peaks (H100 SXM data sheet, dense): the bound of a
 # kernel is the larger of its bytes over HBM_BPS and its operations over the
@@ -86,6 +105,7 @@ SOURCES = {
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12    # CUDA cores
 BF16_FLOPS = 989e12  # tensor cores
+INT8_OPS = 1979e12   # tensor cores, dense int8
 PAIRWISE_RTOL, PAIRWISE_ATOL = 1e-5, 1e-4  # tests/test_pallas_pairwise.py: L1 sum order
 GIST_D, GIST_LATENT = 960, 32
 OC_N, OC_D, OC_SAMPLE, OC_TILE = 8_388_608, 96, 1_048_576, 262_144
@@ -105,6 +125,10 @@ LARGE_N = 4_194_304  # the smallest power of two whose build crosses 32,768 clus
 # operating point is the first nprobe at recall@10 >= 0.80.
 LARGE_RECALL_TARGET = 0.80
 TIE_TOL = 1e-4       # relative gap under which two ranks or bounds count as tied
+# The expansion-form scorer against its plain version
+# (tests/test_pallas_rerank.py): exact dots, the combine within an ulp.
+MXU_RTOL, MXU_ATOL = 3e-7, 1e-3
+LIVE_STORE = "live_store"  # under build/, deleted after the phase
 DEVICE = "cuda"
 
 
@@ -259,6 +283,90 @@ def phase_kernels(torch, report):
     kernel_centroid_scan(torch, report)
     kernel_rerank_int8(torch, report)
     kernel_pairwise(torch, report)
+    kernel_int8mxu(torch, report)
+
+
+def transposed_codes(torch, vectors3d):
+    """(codesT3d (C, d_pad, pad) int8, norms2 (C, pad) int32) of int8 slabs
+    (C, pad, d_pad): the layout and |r|^2 table the expansion scorer reads,
+    built on the card as benchmarks/rerank_bench.py builds them in numpy
+    (a transposed copy; the squared codes summed in int32, 4,096 slabs at
+    a time)."""
+    codesT3d = vectors3d.transpose(1, 2).contiguous()
+    norms2 = torch.zeros(vectors3d.shape[:2], dtype=torch.int32, device=vectors3d.device)
+    for s in range(0, vectors3d.shape[0], 4096):
+        v = vectors3d[s : s + 4096].to(torch.int32)
+        norms2[s : s + 4096] = (v * v).sum(dim=2, dtype=torch.int32)
+    return codesT3d, norms2
+
+
+def int8mxu_check(torch, args, tag: str):
+    """The expansion scorer's kernel against its plain version on ``args``
+    (qcodes, qscale, qnorm2, rows, codesT3d, norms2, scales): within
+    MXU_ATOL + MXU_RTOL |want| everywhere and the same stable order of each
+    (query, probe)'s pad row.  Returns (max abs error, kernel ms, plain ms)."""
+    from spfresh_tpu_torch.ops import rerank
+
+    got = rerank.padded_rerank_distances_int8mxu(*args)
+    want = rerank.padded_rerank_distances_int8mxu_plain(*args)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    over = int((err > MXU_ATOL + MXU_RTOL * want.abs()).sum())
+    assert over == 0, f"{tag}: {over} int8mxu scores outside rtol {MXU_RTOL} atol {MXU_ATOL}"
+    order_differs = int((torch.argsort(got, dim=-1, stable=True)
+                         != torch.argsort(want, dim=-1, stable=True)).any(dim=-1).sum())
+    assert order_differs == 0, f"{tag}: {order_differs} (query, probe) orders differ"
+    max_abs = float(err.max())
+    del got, want, err
+    ms = cuda_ms(torch, lambda: rerank.padded_rerank_distances_int8mxu(*args), 20)
+    plain_ms = cuda_ms(torch, lambda: rerank.padded_rerank_distances_int8mxu_plain(*args), 2)
+    return max_abs, ms, plain_ms
+
+
+def int8mxu_bound(rows, Q: int, nprobe: int, d: int, pad: int) -> dict:
+    """Bytes: each probed (d, pad) int8 slab and its pad int32 norms once,
+    the query codes and scalars, the output; operations: a multiply and
+    an add per code, over the dense int8 tensor-core peak."""
+    probed = int(rows.unique().numel())
+    nbytes = probed * (d * pad + pad * 4) + Q * nprobe * (d + 12) + Q * nprobe * pad * 4
+    return {**bound(nbytes, 2 * Q * nprobe * pad * d, INT8_OPS), "probed": probed}
+
+
+def kernel_int8mxu(torch, report):
+    """The expansion-form scorer at benchmarks/rerank_bench.py's shape and
+    data (C 10,775, pad 240, d 128, Q 4,096, nprobe 8, seed 0: Gaussian
+    residuals quantized per slab); codes transposed and |r|^2 built on the
+    card as the bench builds them in numpy."""
+    from spfresh_tpu_torch.ops import rerank
+
+    dev = torch.device(DEVICE)
+    C, pad, d, Q, nprobe = 10775, 240, 128, 4096, 8
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    cents = rng.standard_normal((C, d)).astype(np.float32)
+    resid = rng.standard_normal((C, pad, d)).astype(np.float32)
+    scales_c = (np.abs(resid).max(axis=(1, 2)) / 127.0).astype(np.float32)
+    codes = np.clip(np.rint(resid / scales_c[:, None, None]), -127, 127).astype(np.int8)
+    del resid
+    queries = rng.standard_normal((Q, d)).astype(np.float32)
+    rows = rng.integers(0, C, (Q, nprobe)).astype(np.int32)
+    log(f"kernel rerank_int8mxu: bench data made in {time.perf_counter() - t0:.2f} s (host)")
+    codesT, norms2 = transposed_codes(torch, torch.from_numpy(codes).to(dev))
+    del codes
+    rows_d = torch.from_numpy(rows).to(dev)
+    qcodes, qscale, qnorm2 = rerank.quantize_centered_queries(
+        torch.from_numpy(queries).to(dev), torch.from_numpy(cents).to(dev), rows_d)
+    args = (qcodes, qscale, qnorm2, rows_d, codesT, norms2, torch.from_numpy(scales_c).to(dev))
+    max_abs, ms, plain_ms = int8mxu_check(torch, args, "kernel rerank_int8mxu")
+    b = int8mxu_bound(rows_d, Q, nprobe, d, pad)
+    gbps = Q * nprobe * pad * d / (ms * 1e-3) / 1e9
+    tops = 2 * Q * nprobe * pad * d / (ms * 1e-3) / 1e12
+    log(f"kernel rerank_int8mxu: C={C} pad={pad} d={d} Q={Q} nprobe={nprobe} (rerank_bench) "
+        f"max_abs_err={max_abs:.3e} (rtol {MXU_RTOL} atol {MXU_ATOL}), stable order equal; "
+        f"kernel={ms:.4f} ms ({gbps:.0f} GB/s code reads, {tops:.2f} TOP/s) "
+        f"plain={plain_ms:.4f} ms; the rows probe {b.pop('probed')} of {C} slabs")
+    report["rerank_int8mxu"] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                                "library_ms": None, **b}
 
 
 def kernel_centroid_scan(torch, report):
@@ -528,6 +636,239 @@ def phase_main(torch, n: int, nq: int, report) -> None:
         for name, c in counts.items():
             report[name]["launches"] = c
         profile_search(torch, index, queries, nprobe)
+    return index, data, queries, gt, nprobe
+
+
+def mixture_more(seed: int, n: int, m: int, draw_seed: int, d: int = 128,
+                 spread: float = 0.7) -> np.ndarray:
+    """m more points of ``mixture(seed, n, ...)``'s mixture (its centers,
+    replayed), drawn with their own generator."""
+    centers = np.random.default_rng(seed).standard_normal((max(64, n // 1000), d))
+    centers = centers.astype(np.float32)
+    rng = np.random.default_rng(draw_seed)
+    a = rng.integers(0, len(centers), size=m)
+    return (centers[a] + spread * rng.standard_normal((m, d))).astype(np.float32)
+
+
+def repack_gate(fresh, queries, nprobe: int, tag: str):
+    """Gate (a): the in-place view's ids equal those of a full repack of
+    the same postings (drop_device_views, then the next search packs in
+    full).  Returns the number of differing ids."""
+    t0 = time.perf_counter()
+    inc, _ = fresh.search(queries, 10, nprobe=nprobe)
+    with fresh._lock:
+        fresh.index.drop_device_views()
+        full, _ = fresh.index.search(queries, 10, nprobe=nprobe)
+    differ = int((inc != full).sum())
+    log(f"{tag}: gate (a) {len(queries)} queries at nprobe={nprobe}: ids of the in-place view "
+        f"vs a full repack: {differ} of {inc.size} differ ({time.perf_counter() - t0:.2f} s)")
+    return differ, inc
+
+
+def live_counts(metrics) -> dict:
+    snap = metrics.snapshot()
+    keys = ("view.append_updates", "view.vectors_appended", "view.append_scale_demotions",
+            "view.rows_scattered",
+            "view.incremental_updates", "view.full_repacks", "lire.split.ok",
+            "lire.reassign.ok", "lire.merge.ok", "lire.split.failed", "lire.merge.failed",
+            "lire.reassign.failed", "lire.vectors_moved")
+    return {k: int(snap.get(k, 0)) for k in keys}
+
+
+def phase_live(torch, index, data, queries, gt, nprobe: int, updates: int = 20_000,
+               hot_n: int = 4096, int8_n: int = 262_144) -> None:
+    """Live updates on main's bf16 index through SpFreshIndex, the gates,
+    then the int8 repack gate on a 262,144-row index."""
+    import shutil
+    from pathlib import Path
+
+    from spfresh_tpu_torch.eval import evaluate
+    from spfresh_tpu_torch.index import brute_force_search
+    from spfresh_tpu_torch.lire import LireConfig, SpFreshIndex
+    from spfresh_tpu_torch.ops import rerank
+    from spfresh_tpu_torch.utils import metrics
+
+    store = Path(__file__).resolve().parent / "build" / LIVE_STORE
+    shutil.rmtree(store, ignore_errors=True)
+    n, batch = len(data), 512
+    failures = []
+    try:
+        metrics.DEFAULT.reset()
+        rerank.launches = 0
+        t0 = time.perf_counter()
+        fresh = SpFreshIndex(index, str(store), LireConfig(max_partition_size=512,
+                                                           min_partition_size=16))
+        log(f"live: SpFreshIndex over {index.num_clusters} postings, {index.num_vectors} stored "
+            f"vectors, store under build/, in {time.perf_counter() - t0:.2f} s (host)")
+        ev0 = evaluate(index, queries, gt, 10, nprobe)
+
+        ins1 = mixture_more(12345, n, updates, 1)
+        ins2 = mixture_more(12345, n, updates, 2)
+        ids1 = np.arange(n, n + updates)
+        ids2 = np.arange(n + updates, n + 2 * updates)
+        t0 = time.perf_counter()
+        for s in range(0, updates, batch):
+            fresh.insert_batch(ins1[s : s + batch], ids1[s : s + batch])
+        insert_s = time.perf_counter() - t0
+        probe = queries[:8]
+        t0 = time.perf_counter()
+        for s in range(0, updates, batch):
+            fresh.insert_batch(ins2[s : s + batch], ids2[s : s + batch])
+            fresh.search(probe, 10, nprobe=nprobe)
+        visible_s = time.perf_counter() - t0
+        rng = np.random.default_rng(3)
+        hot_at = int(rng.integers(n))
+        hot = (data[hot_at] + 0.01 * rng.standard_normal((hot_n, data.shape[1]))).astype(
+            np.float32)
+        hot_ids = np.arange(n + 2 * updates, n + 2 * updates + hot_n)
+        t0 = time.perf_counter()
+        for s in range(0, hot_n, batch):
+            fresh.insert_batch(hot[s : s + batch], hot_ids[s : s + batch])
+        hot_s = time.perf_counter() - t0
+        # The hot posting's splits drain before the next search packs the
+        # view: a view packed mid-split would pad every slab to its width.
+        t0 = time.perf_counter()
+        fresh.flush()
+        got, _ = fresh.search(hot[:8], 10, nprobe=nprobe)
+        hot_drain_s = time.perf_counter() - t0
+        hot_seen = float(np.isin(got, hot_ids).sum(axis=1).mean())
+        del_ids = rng.choice(n, size=updates // 2, replace=False)
+        t0 = time.perf_counter()
+        deleted = fresh.delete_batch(del_ids)
+        delete_s = time.perf_counter() - t0
+        fresh.search(probe, 10, nprobe=nprobe)  # deletes land as slab rewrites
+        t0 = time.perf_counter()
+        deleted += fresh.delete_batch(hot_ids)
+        delete_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh.flush()
+        drain_s = time.perf_counter() - t0
+        counts = live_counts(metrics)
+        log(f"live: inserts {updates / insert_s:.1f}/s ({insert_s:.2f} s); insert-then-visible "
+            f"{updates / visible_s:.1f}/s ({visible_s:.2f} s, a search of 8 after each "
+            f"{batch}-batch); hot-spot inserts {hot_n / hot_s:.1f}/s ({hot_s:.2f} s, around "
+            f"corpus row {hot_at}; drain and search {hot_drain_s:.2f} s; 8 hot queries find "
+            f"{hot_seen:.2f} hot ids in their top 10 at nprobe={nprobe}); deletes {deleted / delete_s:.1f}/s ({deleted} of "
+            f"{len(del_ids) + hot_n} ids, {delete_s:.2f} s); drain {drain_s:.2f} s")
+        log(f"live: postings {index.num_clusters}, stored {index.num_vectors}, slabs "
+            f"{tuple(index.padded_view().vectors3d.shape)}; counts {counts}")
+        if not (counts["view.append_updates"] > 0 and counts["view.rows_scattered"] > 0):
+            failures.append("(b) the in-place view took no append or no slab rewrite")
+        for op in ("split", "reassign", "merge"):
+            if counts[f"lire.{op}.ok"] < 1:
+                failures.append(f"(b) no {op} completed")
+
+        # (e) recall before and after, (d) deleted and repeated ids.
+        live = np.ones(n, bool)
+        live[del_ids] = False
+        all_data = np.concatenate([data[live], ins1, ins2])
+        all_ids = np.concatenate([np.arange(n)[live], ids1, ids2])
+        t0 = time.perf_counter()
+        _, gt_rows = brute_force_search(all_data, queries, 10, device=DEVICE, batch_size=4096)
+        gt_s = time.perf_counter() - t0
+        ev1 = evaluate(fresh.index, queries, all_ids[gt_rows], 10, nprobe)
+        log(f"live: gate (e) recall@10 at nprobe={nprobe}: before {ev0.recall:.4f} "
+            f"({ev0.qps:.1f} QPS), after {ev1.recall:.4f} ({ev1.qps:.1f} QPS; eval.evaluate, one "
+            f"timed search each; exact ground truth of the mutated corpus, {len(all_data)} rows, "
+            f"on the card in {gt_s:.2f} s)")
+        ids_after, _ = fresh.search(queries, 10, nprobe=nprobe)
+        dead = np.isin(ids_after, np.concatenate([del_ids, hot_ids]))
+        srt = np.sort(ids_after, axis=1)
+        dup = (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)
+        log(f"live: gate (d) deleted ids in results: {int(dead.sum())}; rows repeating an id: "
+            f"{int(dup.any(axis=1).sum())}")
+        if dead.any() or dup.any():
+            failures.append("(d) a deleted id was returned or a row repeats an id")
+
+        # (c) each surviving insert finds itself.
+        mine = np.concatenate([ins1, ins2])
+        mine_ids = np.concatenate([ids1, ids2])
+        got, _ = fresh.search(mine, 10, nprobe=nprobe)
+        miss = np.flatnonzero(~(got == mine_ids[:, None]).any(axis=1))
+        ties = visibility_ties(fresh, mine[miss], mine_ids[miss], nprobe)
+        log(f"live: gate (c) {len(mine)} surviving inserts searched for their own vectors at "
+            f"nprobe={nprobe}: {len(miss)} not in their top 10, of which {ties} are routing "
+            f"near-ties (f64 centroid distances within {TIE_TOL} of the nprobe-th)")
+        if ties < len(miss):
+            failures.append(f"(c) {len(miss) - ties} inserts not visible without a near-tie")
+
+        differ, _ = repack_gate(fresh, queries, nprobe, "live")
+        if differ:
+            failures.append(f"(a) {differ} ids differ from the full repack")
+        log(f"live: bf16 rerank launches in the phase: {rerank.launches}")
+        fresh.close()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    live_int8(torch, store, failures, int8_n)
+    assert not failures, f"live gates failed: {failures}"
+
+
+def visibility_ties(fresh, vecs, vids, nprobe: int) -> int:
+    """How many of the inserts ``vids`` that search missed sit in a
+    posting whose centroid ties (within TIE_TOL, in f64) with the
+    nprobe-th nearest centroid: a routing near-tie, not a lost insert."""
+    if len(vids) == 0:
+        return 0
+    index = fresh.index
+    pids = np.array(sorted(index.centroids))
+    C = np.stack([index.centroids[p] for p in pids]).astype(np.float64)
+    ties = 0
+    for i, (v, vid) in enumerate(zip(vecs, vids)):
+        D = ((C - v.astype(np.float64)) ** 2).sum(1)
+        kth = np.partition(D, nprobe - 1)[nprobe - 1]
+        homes = fresh.storage.postings_of(int(vid))
+        best = min((D[np.searchsorted(pids, h)] for h in homes), default=np.inf)
+        ties += int(abs(best - kth) <= TIE_TOL * max(kth, 1e-12))
+        if i < 20:
+            log(f"live: insert {int(vid)} missed: homes {homes}, f64 home centroid distance "
+                f"{best:.6f}, {nprobe}-th nearest centroid {kth:.6f}")
+    return ties
+
+
+def live_int8(torch, store, failures, n: int) -> None:
+    """5,000 inserts and 2,000 deletes on a 262,144-row int8 index (the
+    int8 append path and its scale guard), then the repack gate."""
+    import shutil
+
+    from spfresh_tpu_torch.index import Config
+    from spfresh_tpu_torch.lire import LireConfig, SpFreshIndex
+    from spfresh_tpu_torch.utils import metrics
+
+    data, queries = mixture(12345, n, 16_384)
+    cfg = Config.from_dict({
+        "clustering_params": {
+            "distance_metric": "Euclidean", "initialization_method": "KMeans++",
+            "initial_k": 16, "desired_cluster_size": 256, "rng_seed": 42,
+        },
+        "storage_dtype": "int8",
+        "search": {"query_batch_size": 8192},
+    })
+    index, _ = build_logged(torch, cfg, data, "live int8")
+    shutil.rmtree(store, ignore_errors=True)
+    try:
+        metrics.DEFAULT.reset()
+        fresh = SpFreshIndex(index, str(store), LireConfig(max_partition_size=512,
+                                                           min_partition_size=16))
+        ins = mixture_more(12345, n, 5000, 4)
+        ins_ids = np.arange(n, n + 5000)
+        t0 = time.perf_counter()
+        for s in range(0, 5000, 512):
+            fresh.insert_batch(ins[s : s + 512], ins_ids[s : s + 512])
+            fresh.search(queries[:8], 10, nprobe=8)
+        dels = np.random.default_rng(5).choice(n, size=2000, replace=False)
+        deleted = fresh.delete_batch(dels)
+        fresh.flush()
+        fresh.search(queries[:8], 10, nprobe=8)
+        log(f"live int8: 5,000 inserts (each batch then searched) and {deleted} of 2,000 deletes "
+            f"in {time.perf_counter() - t0:.2f} s; counts {live_counts(metrics)}")
+        differ, ids = repack_gate(fresh, queries, 8, "live int8")
+        if differ:
+            failures.append(f"(a, int8) {differ} ids differ from the full repack")
+        if np.isin(ids, dels).any():
+            failures.append("(d, int8) a deleted id was returned")
+        fresh.close()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
 
 
 def phase_metric(torch, metric: str, n: int, nq: int, report, target) -> None:
@@ -875,7 +1216,79 @@ def phase_large(torch, n: int, nq: int, report) -> None:
     assert differ <= want.size // 1000, f"{differ} of {want.size} ids differ from the CPU path"
     del cpu, want
     profile_search(torch, index, queries, nprobe, tag="profile large")
+    large_int8mxu(torch, index, view, queries, nprobe, report)
     compare_bf16(torch, cfg, data, queries, gt, index, (nprobe, 2 * nprobe))
+
+
+def expansion_topk(torch, view, codesT, norms2, queries, nprobe: int, k: int = 10,
+                   elementwise: bool = False):
+    """Top-k ids per query over ``view``'s probed slabs, scored by the
+    expansion-form scorer (or, ``elementwise``, by the int8 rerank of the
+    search path), masked and deduplicated as the search does, in batches of
+    8,192 queries.  Returns (ids (Q, k) numpy, the last batch's kernel
+    inputs)."""
+    from spfresh_tpu_torch.ops import rerank
+    from spfresh_tpu_torch.ops.topk import centroid_topk, smallest_k_unique
+
+    dev = torch.device(DEVICE)
+    out, last = [], None
+    for s in range(0, len(queries), 8192):
+        q = torch.zeros((min(8192, len(queries) - s), view.d_pad), device=dev)
+        q[:, : queries.shape[1]] = torch.from_numpy(queries[s : s + 8192]).to(dev)
+        cent_d, rows = centroid_topk(q, view.centroids, view.cent_valid, nprobe, "Euclidean")
+        rows32 = rows.to(torch.int32)
+        if elementwise:
+            qc = q[:, None, :] - view.centroids[rows]
+            dist = rerank.padded_rerank_distances(q, rows32, view.vectors3d, "Euclidean",
+                                                  scales=view.scales[rows], centered_queries=qc)
+        else:
+            qcodes, qscale, qnorm2 = rerank.quantize_centered_queries(q, view.centroids, rows32)
+            last = (qcodes, qscale, qnorm2, rows32, codesT, norms2, view.scales)
+            dist = rerank.padded_rerank_distances_int8mxu(*last)
+        ar = torch.arange(view.pad, device=dev)
+        valid = (ar < view.lens[rows][..., None]) & torch.isfinite(cent_d)[..., None]
+        cand = torch.where(valid, view.ids2d[rows], torch.full_like(view.ids2d[rows], -1))
+        dist = torch.where(valid, dist, torch.full_like(dist, float("inf")))
+        _, ids = smallest_k_unique(dist.reshape(len(q), -1), cand.reshape(len(q), -1), k,
+                                   max_dup=view.max_dup)
+        out.append(ids.cpu().numpy())
+    return np.concatenate(out), last
+
+
+def large_int8mxu(torch, index, view, queries, nprobe: int, report) -> None:
+    """The expansion-form scorer over the large phase's own int8 view: its
+    codes transposed to (Cpad, d_pad, pad) and |r|^2 built on the card; the
+    phase's queries scored at its operating nprobe with stage-1 rows from
+    its search (the path, counted), the kernel against its plain version
+    on the last batch, and how many of each query's top-10 candidates match
+    the elementwise int8 rerank's over the same rows (printed, no gate)."""
+    from spfresh_tpu_torch.ops import rerank
+
+    t0 = time.perf_counter()
+    codesT, norms2 = transposed_codes(torch, view.vectors3d)
+    torch.cuda.synchronize()
+    log(f"large int8mxu: codes {tuple(view.vectors3d.shape)} -> {tuple(codesT.shape)} and "
+        f"|r|^2 {tuple(norms2.shape)} in {time.perf_counter() - t0:.2f} s")
+    rerank.int8mxu_launches = 0
+    mxu_ids, last = expansion_topk(torch, view, codesT, norms2, queries, nprobe)
+    launches = rerank.int8mxu_launches
+    assert launches > 0, "the int8mxu scorer did not run"
+    report["rerank_int8mxu"]["launches"] = launches
+    max_abs, ms, plain_ms = int8mxu_check(torch, last, "large int8mxu")
+    Q, np_, d, pad = last[0].shape[0], nprobe, codesT.shape[1], codesT.shape[2]
+    b = int8mxu_bound(last[3], Q, np_, d, pad)
+    elem_ids, _ = expansion_topk(torch, view, codesT, norms2, queries, nprobe, elementwise=True)
+    match = np.array([len(set(a[a >= 0].tolist()) & set(e[e >= 0].tolist()))
+                      for a, e in zip(mxu_ids, elem_ids)])
+    log(f"large int8mxu: {launches} launches scoring {len(queries)} queries at nprobe={nprobe}; "
+        f"last batch Q={Q} Cpad={codesT.shape[0]} d_pad={d} pad={pad}: max_abs_err={max_abs:.3e} "
+        f"(rtol {MXU_RTOL} atol {MXU_ATOL}), stable order equal; kernel={ms:.4f} ms "
+        f"plain={plain_ms:.4f} ms bound={b['bound_ms']:.4f} ms ({b['bound_by']}, "
+        f"{b['probed']} slabs probed)")
+    log(f"large int8mxu: top-10 candidates shared with the elementwise int8 rerank: "
+        f"mean {match.mean():.4f} of 10, min {match.min()}, "
+        f"{int((match == 10).sum())} of {len(match)} queries all 10")
+    del codesT, norms2, last
 
 
 def compare_bf16(torch, cfg, data, queries, gt, index8, nprobes) -> None:
@@ -1030,9 +1443,13 @@ def main() -> int:
 
     assert not torch.backends.cuda.matmul.allow_tf32, "plain versions must not run in TF32"
     report = {}
+    main_state = {}
     runs = {
         "kernels": lambda: phase_kernels(torch, report),
-        "main": lambda: phase_main(torch, 1_000_000, 16_384, report),
+        "main": lambda: main_state.update(zip(
+            ("index", "data", "queries", "gt", "nprobe"),
+            phase_main(torch, 1_000_000, 16_384, report))),
+        "live": lambda: phase_live(torch, **main_state),
         "large": lambda: phase_large(torch, LARGE_N, 16_384, report),
         "manhattan": lambda: phase_metric(torch, "Manhattan", 1_000_000, 16_384, report, 0.90),
         "chebyshev": lambda: phase_metric(torch, "Chebyshev", 262_144, 16_384, report, None),
@@ -1042,6 +1459,8 @@ def main() -> int:
     for name, run in runs.items():
         t0 = time.perf_counter()
         run()
+        if name == "live":
+            main_state.clear()  # release main's index before the large phase
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

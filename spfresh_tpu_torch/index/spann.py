@@ -21,8 +21,15 @@ storage (IVF-SQ8) packs residual codes ``round((x - c) / s_c)`` with one
 scale per posting, bit-identical to the JAX package's pack, and keeps the
 centroids in f32.
 
-Not ported: incremental view updates (``_apply_padded_updates``), the CSR
-``DeviceView`` and its XLA engine (ROADMAP queue 1).
+Live updates (``add_cluster``, ``remove_cluster``, ``replace_posting``)
+mark postings dirty; the next ``padded_view()`` writes only those into the
+view's tensors in place (``_apply_padded_updates``): appended member rows
+alone when a posting only grew, else the posting's whole slab.  A full
+repack happens only after a bulk load, or when a posting outgrows its slab
+or no free slab row is left.
+
+Not ported: the CSR ``DeviceView`` and its XLA engine (no port path reads
+it).
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import numpy as np
 import torch
 
 from spfresh_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
-from spfresh_tpu_torch.core.dtypes import DtypePolicy
+from spfresh_tpu_torch.core.dtypes import DtypePolicy, posting_scales_np, quant_scale_for, quantize_np
 from spfresh_tpu_torch.index.config import Config
 from spfresh_tpu_torch.index.posting_store import (
     FileBasedPostingListStore,
@@ -231,11 +238,28 @@ def _pack_slabs(vec_source, flat_ids: np.ndarray, slots: np.ndarray, Cpad: int, 
     return v.reshape(Cpad, pad, d_pad), ids.reshape(Cpad, pad), scales
 
 
+_UPDATE_ROWS = 1024  # slabs per in-place rewrite step (bounds the host block)
+
+
+def _cast_storage_np(x, sd: torch.dtype, scale) -> torch.Tensor:
+    """Host f32 rows in the storage dtype, as a CPU tensor: int8 quantizes
+    with ``scale`` (a scalar or per-row array, ``quantize_np``); bf16 rounds
+    half to even (a torch cast, as ``ml_dtypes`` does for the JAX
+    package)."""
+    if sd == torch.int8:
+        return torch.from_numpy(quantize_np(x, scale))
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(sd)
+
+
 @dataclasses.dataclass
 class PaddedView:
     """Slab layout: every posting list is one contiguous (pad, d_pad) block
     of a (Cpad, pad, d_pad) device array; d is zero-padded to a multiple of
-    128 (zeros cancel in every metric because queries are padded alike)."""
+    128 (zeros cancel in every metric because queries are padded alike).
+
+    The view is updated in place: ``free_rows`` are the unoccupied slab
+    rows (Cpad headroom) that postings created by live updates take, and a
+    mutated posting is written into its own row."""
 
     centroids: torch.Tensor  # (Cpad, d_pad) storage dtype (f32 for int8 slabs)
     cent_valid: torch.Tensor  # (Cpad,) bool
@@ -245,7 +269,15 @@ class PaddedView:
     scales: torch.Tensor  # (Cpad,) f32 per-posting dequant scales (1.0 = none)
     pad: int
     d_pad: int
+    cluster_rows: Dict[int, int] = dataclasses.field(default_factory=dict)
     max_dup: int = 8
+    free_rows: List[int] = dataclasses.field(default_factory=list)
+    # cid -> the ids its slab held at the last refresh: the next refresh
+    # recognizes a pure append and writes only the appended rows.
+    snapshot: Dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
+    # Host copy of ``scales`` for the int8 append path (pulled on first use;
+    # slab rewrites keep it in step).
+    scales_host: Optional[np.ndarray] = None
 
 
 class _LazyMemberVecs:
@@ -300,17 +332,44 @@ class SpannIndex:
         self.centroids: Dict[int, np.ndarray] = {}
         self._next_cluster_id = 0
         self._padded_view: Optional[PaddedView] = None
-        self._gen = 0  # bumped on every bulk change; the view caches its gen
+        self._gen = 0  # bumped on every mutation; the view caches its gen
         self._padded_gen = -1
+        # Cluster ids mutated since the view was packed; None means the
+        # change was a bulk load and the next view is a full pack.
+        self._dirty_padded: Optional[set] = set()
+        # cid -> gen of its last mutation / centroid change, and the gen of
+        # the last bulk load (the JAX package's journal for external views).
+        self._mutated_gen: Dict[int, int] = {}
+        self._centroid_gen: Dict[int, int] = {}
+        self._bulk_gen = 0
+        # Dirty cids whose centroid changed: their slabs are rewritten, never
+        # appended to.
+        self._dirty_centroid: set = set()
         # (gen, all_ids, all_vecs) from a bulk load, for the first view pack.
         self._flat_cache = None
         # (gen, device corpus) from the build, for the on-device slab pack.
         self._corpus_cache = None
+        # Largest known replica multiplicity of any point id: full packs
+        # compute it, live updates report through note_multiplicity.
         self._mult_hint = 1
         self.build_profile: Dict[str, float] = {}
 
+    def note_multiplicity(self, m: int) -> None:
+        self._mult_hint = max(self._mult_hint, int(m))
+
     def _dedup_bound(self) -> int:
+        # +1: a Reassign's copy-before-delete window can raise one id's
+        # multiplicity for a moment.
         return _next_pow2(self._mult_hint + 1)
+
+    def _mark_dirty(self, cluster_id: int) -> None:
+        self._gen += 1
+        self._corpus_cache = None  # release the build corpus on the device
+        self._mutated_gen[cluster_id] = self._gen
+        if cluster_id in self._dirty_centroid:
+            self._centroid_gen[cluster_id] = self._gen
+        if self._dirty_padded is not None:
+            self._dirty_padded.add(cluster_id)
 
     # -- construction ------------------------------------------------------
 
@@ -343,10 +402,57 @@ class SpannIndex:
             self.centroids[cid] = data[c.centroid_idx].copy()
             pos += m
         self._gen += 1
+        self._dirty_padded = None  # bulk load: the next view is a full pack
+        self._bulk_gen = self._gen
         if fresh and len(self.postings) == len(clusters):
             self._flat_cache = (self._gen, all_ids, all_vecs)
             if corpus_ok:
                 self._corpus_cache = (self._gen, corpus_dev)
+
+    def _as_posting_vecs(self, ids, vectors) -> np.ndarray:
+        vectors = np.asarray(vectors, np.float32)
+        if len(ids) == 0:
+            return vectors.reshape(0, self.dim or (vectors.shape[-1] if vectors.ndim > 1 else 0))
+        return vectors.reshape(len(ids), -1)
+
+    def add_cluster(self, vectors: np.ndarray, ids: np.ndarray, centroid: np.ndarray) -> int:
+        cid = self._next_cluster_id
+        self._next_cluster_id += 1
+        vectors = self._as_posting_vecs(ids, vectors)
+        if self.dim is None:
+            self.dim = vectors.shape[1]
+        self.postings[cid] = (np.asarray(ids, np.int64), vectors)
+        self.centroids[cid] = np.asarray(centroid, np.float32)
+        self._dirty_centroid.add(cid)
+        self._mark_dirty(cid)
+        return cid
+
+    def remove_cluster(self, cluster_id: int) -> None:
+        self.postings.pop(cluster_id, None)
+        self.centroids.pop(cluster_id, None)
+        self._dirty_centroid.add(cluster_id)
+        self._mark_dirty(cluster_id)
+
+    def replace_posting(self, cluster_id: int, ids: np.ndarray, vectors: np.ndarray,
+                        centroid: Optional[np.ndarray] = None) -> None:
+        self.postings[cluster_id] = (np.asarray(ids, np.int64),
+                                     self._as_posting_vecs(ids, vectors))
+        if centroid is not None:
+            centroid = np.asarray(centroid, np.float32)
+            # Only a real centroid change rules out the append path (mirror
+            # syncs pass the unchanged centroid every time).
+            if not np.array_equal(self.centroids.get(cluster_id), centroid):
+                self._dirty_centroid.add(cluster_id)
+            self.centroids[cluster_id] = centroid
+        self._mark_dirty(cluster_id)
+
+    def drop_device_views(self) -> None:
+        """Release the device view and the build caches; the host posting
+        state is untouched and the next search repacks in full."""
+        self._padded_view = None
+        self._padded_gen = -1
+        self._corpus_cache = None
+        self._flat_cache = None
 
     @property
     def num_clusters(self) -> int:
@@ -360,11 +466,21 @@ class SpannIndex:
     # -- device view -------------------------------------------------------
 
     def padded_view(self) -> PaddedView:
-        """The slab layout, packed in full on first use after a bulk change:
-        (Cpad, pad, d_pad) with Cpad a multiple of 256, pad a multiple of 16
-        with ``slab_growth_slots`` spare slots, d_pad a multiple of 128."""
+        """The slab layout: (Cpad, pad, d_pad) with Cpad a multiple of 256,
+        pad a multiple of 16 with ``slab_growth_slots`` spare slots, d_pad a
+        multiple of 128.  After live updates only the mutated postings are
+        written into it in place; it is packed in full after a bulk load or
+        when the updates do not fit (counted as ``view.full_repacks``)."""
         if self._padded_view is not None and self._padded_gen == self._gen:
             return self._padded_view
+        if (self._padded_view is not None and self._dirty_padded is not None
+                and self._apply_padded_updates()):
+            self._padded_gen = self._gen
+            self._dirty_padded = set()
+            return self._padded_view
+        if self._padded_view is not None:
+            metrics.inc("view.full_repacks")
+            self._padded_view = None  # free its device memory before the repack
         if not self.postings:
             raise ValueError("index is empty")
         d = self.dim
@@ -424,14 +540,184 @@ class SpannIndex:
             scales=scales_dev,
             pad=pad,
             d_pad=d_pad,
+            cluster_rows={c: row for row, c in enumerate(cids)},
             max_dup=self._dedup_bound(),
+            free_rows=list(range(Cpad - 1, C - 1, -1)),
+            snapshot={c: self.postings[c][0] for c in cids},
         )
         self._padded_gen = self._gen
+        self._dirty_padded = set()
+        self._dirty_centroid = set()
         # The view is the only consumer of the build caches; release the
         # device corpus they hold.
         self._flat_cache = None
         self._corpus_cache = None
         return self._padded_view
+
+    def _append_scale_ok(self, view: PaddedView, row: int, c: int, vecs, old_len: int) -> bool:
+        """int8 append admission: appended members quantize with the slab's
+        existing scale, which is exact only while a full pack would keep
+        that scale, i.e. the appended residuals stay within the slab's
+        abs-max.  ``posting_scales_np`` is monotone, so the test is
+        f(new_max) <= s_old.  A slab pinned at 1.0 (empty or all-zero
+        residuals) always takes a rewrite."""
+        if not self.policy.quantized:
+            return True
+        s_old = float(self._view_scales_host(view)[row])
+        if s_old == 1.0:
+            return False
+        res = np.asarray(vecs, np.float32)[old_len:] - self.centroids[c][None, :]
+        new_max = np.float32(np.max(np.abs(res), initial=0.0))
+        return float(posting_scales_np(np.array([new_max]))[0]) <= s_old
+
+    @staticmethod
+    def _view_scales_host(view: PaddedView) -> np.ndarray:
+        if view.scales_host is None:
+            view.scales_host = view.scales.cpu().numpy().copy()
+        return view.scales_host
+
+    def _apply_padded_updates(self) -> bool:
+        """Write the dirty postings into the live view's tensors, in two
+        tiers:
+
+        * **append** — a posting whose previous ids are a prefix of its new
+          ids (streaming inserts) writes only its appended member rows;
+        * **slab rewrite** — anything else (deletes, reassigns, new or
+          removed postings) writes the posting's whole (pad, d_pad) slab, a
+          new posting into a free row.
+
+        Returns False, having changed nothing, when the batch cannot land in
+        place (a posting outgrows its slab, no free row is left, the
+        dimension grew): the caller then packs in full."""
+        view = self._padded_view
+        dirty = self._dirty_padded
+        if not dirty:
+            return True
+        d = self.dim
+        if d > view.d_pad:
+            return False
+        new_rows = [c for c in dirty if c in self.postings and c not in view.cluster_rows]
+        if len(new_rows) > len(view.free_rows):
+            return False
+        if any(c in self.postings and len(self.postings[c][0]) > view.pad for c in dirty):
+            return False
+
+        appends = []  # (row, old_len, add_ids, add_vecs, centroid)
+        row_of: Dict[int, int] = {}  # slab rewrites
+        free = list(view.free_rows)
+        for c in sorted(dirty):
+            if c in self.postings:
+                ids, vecs = self.postings[c]
+                row = view.cluster_rows.get(c, -1)
+                old = view.snapshot.get(c)
+                # An id's coordinates never change (updates mint new ids),
+                # so an id-prefix match certifies the resident slab rows.
+                grown = (row >= 0 and old is not None and c not in self._dirty_centroid
+                         and len(ids) > len(old) and np.array_equal(ids[: len(old)], old))
+                if grown and self._append_scale_ok(view, row, c, vecs, len(old)):
+                    appends.append((row, len(old), ids[len(old):],
+                                    np.asarray(vecs[len(old):], np.float32), self.centroids[c]))
+                    view.snapshot[c] = ids
+                    continue
+                if grown:
+                    metrics.inc("view.append_scale_demotions")  # int8: past the slab's scale
+                if row < 0:
+                    row = free.pop()
+                row_of[c] = row
+            elif c in view.cluster_rows:
+                row_of[c] = view.cluster_rows[c]  # removed: invalidate its row
+            # else: created and removed between refreshes
+
+        dev = self.device
+        sd = self.policy.storage_dtype
+        quant = self.policy.quantized
+        pad, d_pad = view.pad, view.d_pad
+        if appends:
+            B = sum(len(a[2]) for a in appends)
+            slots = np.empty(B, np.int64)
+            vblk = np.zeros((B, d_pad), np.float32)
+            iblk = np.empty(B, np.int32)
+            pos = 0
+            for row, old_len, add_ids, add_vecs, cent_c in appends:
+                k = len(add_ids)
+                slots[pos : pos + k] = row * pad + old_len + np.arange(k)
+                vblk[pos : pos + k, :d] = add_vecs - cent_c[None, :] if quant else add_vecs
+                iblk[pos : pos + k] = _ids_i32(add_ids)
+                pos += k
+            # int8: appended rows quantize with their slab's existing scale.
+            scale = self._view_scales_host(view)[slots // pad][:, None] if quant else 1.0
+            slots_dev = torch.from_numpy(slots).to(dev)
+            view.vectors3d.view(-1, d_pad)[slots_dev] = _cast_storage_np(vblk, sd, scale).to(dev)
+            view.ids2d.view(-1)[slots_dev] = torch.from_numpy(iblk).to(dev)
+            arows = torch.tensor([a[0] for a in appends], dtype=torch.int64)
+            alens = torch.tensor([a[1] + len(a[2]) for a in appends], dtype=torch.int32)
+            view.lens[arows.to(dev)] = alens.to(dev)
+            metrics.inc("view.append_updates")
+            metrics.inc("view.vectors_appended", B)
+
+        if row_of:
+            items = sorted(row_of.items())
+            for s0 in range(0, len(items), _UPDATE_ROWS):
+                self._rewrite_slabs(view, items[s0 : s0 + _UPDATE_ROWS])
+            view.free_rows = free
+            for c, row in row_of.items():
+                if c in self.postings:
+                    view.cluster_rows[c] = row
+                    view.snapshot[c] = self.postings[c][0]
+                else:
+                    view.cluster_rows.pop(c, None)
+                    view.snapshot.pop(c, None)
+                    view.free_rows.append(row)
+            metrics.inc("view.rows_scattered", len(row_of))
+
+        view.max_dup = max(view.max_dup, self._dedup_bound())
+        metrics.inc("view.incremental_updates")
+        self._dirty_centroid = set()
+        return True
+
+    def _rewrite_slabs(self, view: PaddedView, items) -> None:
+        """Write whole slabs, centroids, lengths and scales of the postings
+        ``items`` [(cid, row)] into the view (a removed posting's row is
+        invalidated).  int8 slabs take a fresh scale from their residuals
+        (``quant_scale_for``), as a full pack computes it."""
+        d, pad, d_pad = self.dim, view.pad, view.d_pad
+        quant = self.policy.quantized
+        sd = self.policy.storage_dtype
+        B = len(items)
+        rows = np.empty(B, np.int64)
+        vblk = np.zeros((B, pad, d_pad), np.float32)
+        iblk = np.full((B, pad), -1, np.int32)
+        lblk = np.zeros(B, np.int32)
+        cblk = np.zeros((B, d_pad), np.float32)
+        sclblk = np.ones(B, np.float32)
+        vldblk = np.zeros(B, bool)
+        for i, (c, row) in enumerate(items):
+            rows[i] = row
+            if c not in self.postings:
+                continue
+            ids, vecs = self.postings[c]
+            m = len(ids)
+            vecs = np.asarray(vecs, np.float32)
+            if quant:
+                vblk[i, :m, :d] = vecs - self.centroids[c][None, :]
+                if m:
+                    sclblk[i] = quant_scale_for(vblk[i, :m, :d])
+            else:
+                vblk[i, :m, :d] = vecs
+            iblk[i, :m] = _ids_i32(ids)
+            lblk[i] = m
+            cblk[i, :d] = self.centroids[c]
+            vldblk[i] = True
+        dev = self.device
+        r = torch.from_numpy(rows).to(dev)
+        view.vectors3d[r] = _cast_storage_np(vblk, sd, sclblk[:, None, None]).to(dev)
+        view.ids2d[r] = torch.from_numpy(iblk).to(dev)
+        view.lens[r] = torch.from_numpy(lblk).to(dev)
+        view.centroids[r] = torch.from_numpy(cblk).to(dev).to(view.centroids.dtype)
+        view.cent_valid[r] = torch.from_numpy(vldblk).to(dev)
+        view.scales[r] = torch.from_numpy(sclblk).to(dev)
+        if view.scales_host is not None:
+            view.scales_host[rows] = sclblk
 
     # -- search ------------------------------------------------------------
 

@@ -103,6 +103,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,                   # stream
     ]
     lib.spf_rerank.restype = i
+    lib.spf_rerank_int8mxu.argtypes = [
+        p, p, p, p,          # qcodes, qscale, qnorm2, rows
+        p, p, p, p,          # codesT3d, norms2, scales, out
+        i, i, i, i, i,       # Q, nprobe, C, d, pad
+        p,                   # stream
+    ]
+    lib.spf_rerank_int8mxu.restype = i
     lib.spf_window_scan.argtypes = [
         p, p, p,             # caug, qaug, out
         i, i, i,             # Q, Cpad, d_pad

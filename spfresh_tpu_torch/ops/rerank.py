@@ -1,10 +1,12 @@
-"""Slab rerank (counterpart of ``spfresh_tpu/ops/pallas/rerank.py``,
-``padded_rerank_distances``: its float path and its quantized IVF-SQ8 path).
+"""Slab rerank (counterpart of ``spfresh_tpu/ops/pallas/rerank.py``:
+``padded_rerank_distances``, its float path and its quantized IVF-SQ8
+path, and ``padded_rerank_distances_int8mxu``, the expansion-form IVF-SQ8
+scorer over transposed int8 codes).
 
-``padded_rerank_distances`` launches the CUDA kernel in ``csrc/rerank.cu``
-for CUDA tensors and runs ``padded_rerank_distances_plain`` for CPU
-tensors; anything else raises.  Nothing on the CUDA search path calls the
-plain version.
+Each wrapper launches its CUDA kernel (``csrc/rerank.cu``,
+``csrc/rerank_int8mxu.cu``) for CUDA tensors and runs its ``*_plain``
+version for CPU tensors; anything else raises.  Nothing on a CUDA path
+calls a plain version.
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ _SLAB_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 PLAIN_CHUNK_BYTES = 1 << 28  # bound on the plain version's (q, nprobe, pad, d_pad) gather
 
 # Kernel launches since the last reset (set to 0 to reset): the float path
-# (f32/bf16 slabs) and the quantized path (int8 slabs) count apart.
+# (f32/bf16 slabs), the quantized path (int8 slabs) and the expansion-form
+# scorer count apart.
 launches = 0
 quantized_launches = 0
+int8mxu_launches = 0
 
 
 def padded_rerank_distances_plain(queries, rows, vectors3d, metric: str = EUCLIDEAN,
@@ -144,3 +148,128 @@ def padded_rerank_distances(queries: torch.Tensor, rows: torch.Tensor,
     else:
         launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Expansion-form IVF-SQ8 rerank ("int8-MXU" in the JAX package)
+# ---------------------------------------------------------------------------
+#
+# With r the residual codes of a slab row (scale s_j) and qcq the int8 codes
+# of the centered query qc = q - c_row (scale s_q):
+#   |s_j r - qc|^2 ~= |qc|^2 - 2 s_j s_q (r . qcq) + s_j^2 |r|^2,
+# the double-quantized score.  The dot is an exact integer; |r|^2 is a
+# per-row int32 table built once from the codes.
+
+
+def quantize_centered_queries(queries: torch.Tensor, centroids: torch.Tensor,
+                              rows: torch.Tensor):
+    """(qcodes (Q, nprobe, d) int8, qscale (Q, nprobe) f32, qnorm2 (Q,
+    nprobe) f32): per-(query, probe) symmetric int8 codes of
+    ``qc = q - centroids[rows]``, with the JAX package's f32 expressions
+    (``qscale = max|qc| / 127``, codes ``clip(round(qc / max(qscale,
+    1e-30)), -127, 127)`` rounding half to even) and the exact f32
+    ``qnorm2 = sum(qc * qc)``."""
+    qc = queries.to(torch.float32)[:, None, :] - centroids[rows.long()].to(torch.float32)
+    qscale = torch.amax(qc.abs(), dim=-1) / 127.0
+    safe = torch.clamp_min(qscale, 1e-30)
+    qcodes = torch.round(qc / safe[..., None]).clamp_(-127, 127).to(torch.int8)
+    qnorm2 = torch.sum(qc * qc, dim=-1)
+    return qcodes, qscale, qnorm2
+
+
+def padded_rerank_distances_int8mxu_plain(qcodes, qscale, qnorm2, rows, codesT3d, norms2,
+                                          scales) -> torch.Tensor:
+    """Plain PyTorch version: the math of the JAX package's
+    ``int8mxu_rerank_oracle``.  The dot is an f32 contraction over int8
+    values, exact because every partial sum is an integer below 2^24 (d up
+    to 1,040).  Query chunks bound the (q, nprobe, d, pad) gather to
+    ~``PLAIN_CHUNK_BYTES``."""
+    Q, nprobe = rows.shape
+    _, d, pad = codesT3d.shape
+    step = max(1, PLAIN_CHUNK_BYTES // max(1, nprobe * d * pad * 4))
+    out = torch.empty((Q, nprobe, pad), dtype=torch.float32, device=rows.device)
+    for s in range(0, Q, step):
+        r = rows[s : s + step].long()
+        dot = torch.einsum("qjdp,qjd->qjp", codesT3d[r].to(torch.float32),
+                           qcodes[s : s + step].to(torch.float32))
+        sj = scales[r].to(torch.float32)
+        n2 = norms2[r].to(torch.float32)
+        out[s : s + step] = (qnorm2[s : s + step, :, None]
+                             - (2.0 * sj * qscale[s : s + step])[..., None] * dot
+                             + (sj * sj)[..., None] * n2)
+    return out
+
+
+def _check_int8mxu(qcodes, qscale, qnorm2, rows, codesT3d, norms2, scales) -> None:
+    if qcodes.ndim != 3 or rows.ndim != 2 or codesT3d.ndim != 3:
+        raise ValueError(
+            f"expected qcodes (Q, nprobe, d), rows (Q, nprobe), codesT3d (C, d, pad); got "
+            f"{tuple(qcodes.shape)}, {tuple(rows.shape)}, {tuple(codesT3d.shape)}")
+    C, d, pad = codesT3d.shape
+    if tuple(qcodes.shape) != (*rows.shape, d):
+        raise ValueError(f"qcodes {tuple(qcodes.shape)} must be (Q, nprobe, d) = "
+                         f"{(*rows.shape, d)}")
+    for name, t in (("qscale", qscale), ("qnorm2", qnorm2)):
+        if tuple(t.shape) != tuple(rows.shape):
+            raise ValueError(f"{name} {tuple(t.shape)} must match rows {tuple(rows.shape)}")
+    if tuple(norms2.shape) != (C, pad):
+        raise ValueError(f"norms2 {tuple(norms2.shape)} must be (C, pad) = {(C, pad)}")
+    if tuple(scales.shape) != (C,):
+        raise ValueError(f"scales {tuple(scales.shape)} must be (C,) = {(C,)}")
+    for name, t, dt in (("qcodes", qcodes, torch.int8), ("qscale", qscale, torch.float32),
+                        ("qnorm2", qnorm2, torch.float32), ("rows", rows, torch.int32),
+                        ("codesT3d", codesT3d, torch.int8), ("norms2", norms2, torch.int32),
+                        ("scales", scales, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if t.device != rows.device:
+            raise ValueError("all int8mxu rerank inputs must be on one device")
+
+
+def padded_rerank_distances_int8mxu(qcodes: torch.Tensor, qscale: torch.Tensor,
+                                    qnorm2: torch.Tensor, rows: torch.Tensor,
+                                    codesT3d: torch.Tensor, norms2: torch.Tensor,
+                                    scales: torch.Tensor, native_int8: bool = False
+                                    ) -> torch.Tensor:
+    """Euclidean IVF-SQ8 rerank in expansion form: (Q, nprobe, pad) f32
+    double-quantized squared distances between the quantized centered
+    queries (``quantize_centered_queries``) and every row of each probed
+    slab of ``codesT3d`` (C, d, pad) int8, the residual codes TRANSPOSED
+    so pad is the contiguous axis, with ``norms2`` (C, pad) int32 the
+    per-row |r|^2 and ``scales`` (C,) f32 the slab scales.
+
+    ``native_int8`` names the JAX kernel's two forms (an int8 x int8 or an
+    f32-accumulated dot); both dots are exact, so the result is the same
+    and the flag changes nothing here."""
+    global int8mxu_launches
+    _check_int8mxu(qcodes, qscale, qnorm2, rows, codesT3d, norms2, scales)
+    if not isinstance(native_int8, bool):
+        raise TypeError("native_int8 must be a bool")
+    if rows.device.type == "cpu":
+        return padded_rerank_distances_int8mxu_plain(qcodes, qscale, qnorm2, rows, codesT3d,
+                                                     norms2, scales)
+    if rows.device.type != "cuda":
+        raise ValueError(f"no int8mxu rerank for device {rows.device}")
+    Q, nprobe = rows.shape
+    C, d, pad = codesT3d.shape
+    if d % 4 or pad % 4:
+        raise ValueError(f"d={d} and pad={pad} must be multiples of 4 for 4-byte loads")
+    if Q * nprobe >= 2**31:
+        raise ValueError(f"Q*nprobe={Q * nprobe} exceeds the kernel's grid")
+    named = (("qcodes", qcodes), ("qscale", qscale), ("qnorm2", qnorm2), ("rows", rows),
+             ("codesT3d", codesT3d), ("norms2", norms2), ("scales", scales))
+    for name, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name} must be 4-byte aligned")
+    out = torch.empty((Q, nprobe, pad), dtype=torch.float32, device=rows.device)
+    rc = _build.library().spf_rerank_int8mxu(
+        qcodes.data_ptr(), qscale.data_ptr(), qnorm2.data_ptr(), rows.data_ptr(),
+        codesT3d.data_ptr(), norms2.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        Q, nprobe, C, d, pad, torch.cuda.current_stream(rows.device).cuda_stream,
+    )
+    _build.check(rc, "int8mxu rerank")
+    int8mxu_launches += 1
+    return out
+
