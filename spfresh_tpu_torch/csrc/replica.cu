@@ -1,11 +1,13 @@
-// Closure-replica top-k: for every corpus point, the n_extra best replica
-// clusters under SPANN's boundary-closure rule.
+// Closure-replica top-k and nearest centroid: for every corpus point, the
+// n_extra best replica clusters under SPANN's boundary-closure rule, or its
+// nearest centroid.
 //
-// Replaces the TPU kernel spfresh_tpu/ops/pallas/replica.py ::
-// pallas_replica_topk (_replica_topk_impl, kernel _make_kernel).
+// Replaces the TPU kernels of spfresh_tpu/ops/pallas/replica.py:
+// pallas_replica_topk (_replica_topk_impl, kernel _make_kernel) and
+// pallas_nearest_centroid (_nearest_centroid_impl, _make_assign_kernel).
 //
-// For point p with base cluster b, over every centroid j (squared L2 by the
-// expansion, clamped >= 0):
+// Replica.  For point p with base cluster b, over every centroid j (squared
+// L2 by the expansion, clamped >= 0):
 //   D  = |c_j|^2 + |p|^2   - 2 c_j.p
 //   CC = |c_j|^2 + |c_b|^2 - 2 c_j.c_b
 //   admit j  iff  D < bt*db  and  CC >= D  and  j != b      (db = dist(p, c_b))
@@ -13,25 +15,57 @@
 // and keep the n_extra smallest ranks, ascending, equal ranks to the lower
 // centroid id (the tie rule of lax.top_k and of the TPU kernel's
 // _select_rounds).  Missing replicas come back as (id -1, rank +inf).
+// Nearest: D_j as above, base = argmin_j D_j (equal D to the lowest j),
+// db = D_base.
 //
-// What bounds it on Hopper: arithmetic.  Two dot products per
-// (point, centroid) pair, 2*n*C*d fused multiply-adds (2.8e12 at the main
-// path's 1M x 10.8k x 128), against ~n*d + (n/64)*C*d bytes read.
+// What bounds them on Hopper: operations.  Two dot products per (point,
+// centroid) pair for the replica, one for the nearest centroid: 4 n C d
+// and 2 n C d flops (1.1e13 and 5.4e12 at an out-of-core tile, 262,144 x
+// 104,425 and x 66,599, d 96) against ~(n + C) d bf16 bytes read.  The
+// (n, C) distance space never reaches device memory.
 //
-// What the design does about it: a register-tiled f32 GEMM.  A block owns
-// 64 points and walks every centroid in ascending-id tiles of 128, staged
-// with the points and their base centroids through shared memory in
+// Each input dtype has one kernel; neither falls back to the other.
+//
+// bf16 (every build path): tc_kernel.  The TPU kernels multiply bf16 by
+// bf16 into f32 on the MXU at default precision; here wgmma does the same
+// on the tensor cores (bf16 products are exact in f32, only the summation
+// order differs).  A block of two consumer warpgroups owns 128 points (64
+// each) and walks every centroid in ascending-id tiles (64 centroids for
+// the replica's two products, 128 for the nearest centroid's one); one
+// thread of a producer warpgroup feeds it with TMA copies (128-byte
+// swizzle, 64-column slices; d 96 reads a zero-filled half slice, and rows
+// and columns past the ends read as zero) through a ring of shared-memory
+// buffers guarded by mbarriers.  The producer warpgroup hands its
+// registers to the consumers (setmaxnreg 40 / 232): capped at 128, the
+// epilogue spilled to local memory.  The point-side tiles (X and, for the
+// replica, the gathered base centroids
+// Cb = cents[base]) stay resident in shared memory for the whole walk
+// while they fit (d <= 320 for the replica, <= 576 for the nearest
+// centroid); past that they stream slice by slice beside the centroid
+// slices.  Both replica products share each centroid slice.  The epilogue
+// runs on the accumulators in registers: the closure test, CC and the SOAR
+// rank with the arithmetic of the f32 kernel, a sorted (rank, id) insert
+// per row, or a running (D, id) argmin; the 4 lanes that share a row merge
+// by shuffles at the end.  No atomics: every run gives the same result.
+// Squared norms come from one pass per row (sqnorm_kernel) into scratch.
+// Measured on an out-of-core tile (H100 80GB HBM3, 700 W; chip_smoke.py):
+// replica 146.5 TFLOP/s (71.9 ms), nearest centroid 132.3 TFLOP/s (25.3
+// ms), 13-15% of the tensor-core peak.  The CUDA-core epilogue, not the
+// tensor cores, sets that pace: a warpgroup's epilogue does not overlap
+// its own next products.
+//
+// f32 (the exact build): replica_kernel and nearest_kernel, register-tiled
+// f32 GEMMs on the CUDA cores.  Their contract is the reference's
+// Precision.HIGHEST, which TF32 tensor cores would break.  A replica block
+// owns 64 points and walks every centroid in ascending-id tiles of 128,
+// staged with the points and their base centroids through shared memory in
 // 16-deep slices of d; each thread accumulates a 4-point x 8-centroid block
-// of both dot products (64 FMAs per 16 shared-memory reads).  bf16 inputs
-// are widened to f32 when staged, so products are exact and sums f32; f32
-// inputs run full f32 FMAs (the reference's Precision.HIGHEST).  Squared
-// norms come from one pass per row (sqnorm_kernel) into scratch, so |c_j|^2
-// is computed once, not per tile.  Each thread keeps its points' running
-// top-n_extra in registers with a (rank, id) lexicographic insertion; the 16
-// threads that share a point merge their lists with shuffles at the end.
-// The (n, C) distance space never reaches device memory.  C is a run-time
-// argument; columns past C are masked.  Tensor cores (wgmma) are later work.
+// of both dot products (64 FMAs per 16 shared-memory reads) and keeps its
+// points' running top-n_extra in registers with a (rank, id) lexicographic
+// insertion; the 16 threads that share a point merge their lists with
+// shuffles at the end.  C is a run-time argument; columns past C are masked.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -73,6 +107,20 @@ __global__ void sqnorm_kernel(const typename S::T* __restrict__ A, int rows, int
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) out[r] = acc;
+}
+
+// x2 = |X rows|^2 (n,) and cn2 = |cents rows|^2 (C,) into scratch.
+template <typename S>
+cudaError_t sqnorms(const void* X, int n, const void* cents, int C, int d, float* x2, float* cn2,
+                    cudaStream_t s) {
+  using T = typename S::T;
+  constexpr int kWarpsPerBlock = 8;
+  sqnorm_kernel<S><<<(n + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0, s>>>(
+      static_cast<const T*>(X), n, d, x2);
+  if (C > 0)
+    sqnorm_kernel<S><<<(C + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0, s>>>(
+        static_cast<const T*>(cents), C, d, cn2);
+  return cudaGetLastError();
 }
 
 // Sorted insert by (rank, id): strict lexicographic order, so the kept set
@@ -265,14 +313,7 @@ template <typename S>
 cudaError_t launch_all(const void* X, const int* base, const void* cents, const float* db,
                        float* x2, float* cn2, int* oi, float* orank, int n, int C, int d,
                        int n_extra, float bt, float lam, cudaStream_t s) {
-  using T = typename S::T;
-  constexpr int kWarpsPerBlock = 8;
-  sqnorm_kernel<S><<<(n + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0, s>>>(
-      static_cast<const T*>(X), n, d, x2);
-  if (C > 0)
-    sqnorm_kernel<S><<<(C + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0, s>>>(
-        static_cast<const T*>(cents), C, d, cn2);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = sqnorms<S>(X, n, cents, C, d, x2, cn2, s);
   if (err != cudaSuccess) return err;
   // The running list is the next power of two >= n_extra; the first
   // n_extra entries of a sorted top-4 are the sorted top-3.
@@ -288,24 +329,14 @@ cudaError_t launch_all(const void* X, const int* base, const void* cents, const 
 }
 
 // ---------------------------------------------------------------------------
-// Nearest centroid: the top-1 sibling of replica_kernel.
-//
-// Replaces the TPU kernel spfresh_tpu/ops/pallas/replica.py ::
-// pallas_nearest_centroid (kernel _make_assign_kernel), the out-of-core
-// build's base assignment.  For every point p:
-//   D_j = max(|c_j|^2 + |p|^2 - 2 c_j.p, 0)
-//   base = argmin_j D_j (equal D to the lowest j), db = D_base.
-//
-// What bounds it on Hopper: arithmetic, 2*n*C*d flops of one dot product
-// per (point, centroid) pair against n*d + (n/128)*C*d bytes read.
-//
-// What the design does about it: replica_kernel's register-tiled f32 GEMM
-// with one accumulator instead of two, so a block owns 128 points (8 per
-// thread) and each thread does 64 FMAs per four 16-byte shared-memory
-// reads; its epilogue keeps one running (D, id) per point in registers with
-// the lexicographic order of insert(), merged over the 16 lanes that share
-// a point by shuffles.  C is a run-time argument; columns past C are
-// masked, so no centroid padding is needed.  Tensor cores are later work.
+// f32 nearest centroid: the top-1 sibling of replica_kernel.  For every
+// point p:  D_j = max(|c_j|^2 + |p|^2 - 2 c_j.p, 0),  base = argmin_j D_j
+// (equal D to the lowest j), db = D_base.  replica_kernel's register-tiled
+// f32 GEMM with one accumulator instead of two, so a block owns 128 points
+// (8 per thread) and each thread does 64 FMAs per four 16-byte
+// shared-memory reads; its epilogue keeps one running (D, id) per point in
+// registers with the lexicographic order of insert(), merged over the 16
+// lanes that share a point by shuffles.  Columns past C are masked.
 
 constexpr int kNBM = 128;  // points per block
 constexpr int kNT = 8;     // points (and centroids) per thread
@@ -420,54 +451,637 @@ template <typename S>
 cudaError_t launch_nearest(const void* X, const void* cents, float* x2, float* cn2, int* oi,
                            float* od, int n, int C, int d, cudaStream_t s) {
   using T = typename S::T;
-  constexpr int kWarpsPerBlock = 8;
-  sqnorm_kernel<S><<<(n + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0, s>>>(
-      static_cast<const T*>(X), n, d, x2);
-  sqnorm_kernel<S><<<(C + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0, s>>>(
-      static_cast<const T*>(cents), C, d, cn2);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = sqnorms<S>(X, n, cents, C, d, x2, cn2, s);
   if (err != cudaSuccess) return err;
   nearest_kernel<S><<<(unsigned)((n + kNBM - 1) / kNBM), NT, 0, s>>>(
       static_cast<const T*>(X), static_cast<const T*>(cents), x2, cn2, oi, od, n, C, d);
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route: tensor-core products (wgmma), the closure or the argmin fused
+// into the epilogue.  See the note at the top of the file.
+
+constexpr int kTcWarps = 8;                    // consumer warps: two warpgroups
+constexpr int kTcThreads = 32 * kTcWarps + 128;  // and one producer warpgroup
+constexpr int kTcBM = 64 * (kTcWarps / 4);       // points per block, 64 per warpgroup
+// setmaxnreg: the producer warpgroup gives its registers to the consumers,
+// 2 x 128 x 232 + 128 x 40 = 64,512 of the SM's 65,536.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kSliceCols = 64;                  // bf16 columns of one swizzled slice
+constexpr int kRowBytes = 2 * kSliceCols;       // 128: the swizzle span
+constexpr int kMaxStages = 8;
+constexpr int kMinStages = 4;
+constexpr int kSmemBudget = 220 * 1024;  // resident tiles + ring; 1 KB more for alignment
+// Centroids per tile: the replica's two m64n64 accumulators or the nearest
+// centroid's one m64n128 are 64 registers a thread (on the out-of-core tile
+// the replica took 84 ms at 64, 104 ms at 128).
+constexpr int kReplicaBN = 64;
+constexpr int kNearestBN = 128;
+
+struct TcShape {
+  int n, C;
+  int slices;    // ceil(d / 64): 64-column slices of a row
+  int stages;    // depth of the shared-memory ring
+  int resident;  // 1: the point-side tiles stay in shared memory for the whole walk
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Spin until the phase of parity `parity` has completed.  Every wait here
+// lasts microseconds; one that outlasts ~10 s of SM clock (a copy that
+// never lands) traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// One TMA copy of a (rows x 64) box at column c0, row r0 into shared memory;
+// completion is counted in bytes on `bar`.  Out-of-bounds elements read 0.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(r0)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
+// TMA writes: rows of 128 bytes, 8-row atoms 1,024 bytes apart (SBO), the
+// start address advanced 32 bytes per k-step inside the atom.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Wait until at most N committed groups of products are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator accesses across the async MMAs.
+template <int K>
+__device__ __forceinline__ void fence_regs(float (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, f32 registers) (+)= A (64 x 16, shared) . B (N x 16, shared)^T,
+// both bf16 K-major.  `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <int N>
+struct Mma;
+template <>
+struct Mma<64> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    wgmma_m64n64(d, a, b, acc);
+  }
+};
+template <>
+struct Mma<128> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    wgmma_m64n128(d, a, b, acc);
+  }
+};
+
+// The accumulator fragment of m64nN: a thread holds rows r and r + 8
+// (r = 16 * warp + lane / 4 of its warpgroup's 64) and, for each 8-column
+// group j, columns 8 j + 2 (lane % 4) + {0, 1}: element 4 j + 2 h + e is
+// (row r + 8 h, column 8 j + 2 (lane % 4) + e).  So each point row is spread
+// over the 4 lanes that share lane / 4.
+
+// The closure rule of replica_kernel on the two products X.c_j and c_b.c_j.
+template <int NE>
+struct ReplicaEpilogue {
+  static constexpr int kOps = 2;
+  struct Params {
+    const int* base;
+    const float* db;
+    const float* x2;
+    const float* cn2;
+    int* out_idx;
+    float* out_rank;
+    int n_extra;
+    float bt, lam;
+  };
+  int b[2];
+  float x2[2], cb2[2], db[2], thr[2];
+  float v[2][NE];
+  int id[2][NE];
+
+  __device__ __forceinline__ void init(const Params& P, const int (&p)[2], int n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      b[h] = 0;
+      x2[h] = cb2[h] = db[h] = 0.f;
+      thr[h] = -INFINITY;  // padding rows admit nothing
+      if (p[h] < n) {
+        b[h] = P.base[p[h]];
+        x2[h] = P.x2[p[h]];
+        cb2[h] = P.cn2[b[h]];
+        db[h] = P.db[p[h]];
+        thr[h] = P.bt * db[h];
+      }
+#pragma unroll
+      for (int t = 0; t < NE; ++t) {
+        v[h][t] = INFINITY;
+        id[h][t] = kIdNone;
+      }
+    }
+  }
+
+  template <int K>
+  __device__ __forceinline__ void tile(const Params& P, const float (&acc)[kOps][K],
+                                       const float (&cn2)[K / 2], int c0, int C, int lane) {
+    // Few pairs pass D < bt*db (the base's own column and a handful of
+    // neighbours per point): test that branch-free first, and walk the
+    // closure and the inserts only when one does.
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < K / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          any |= fmaxf((cn2[2 * j + e] + x2[h]) - 2.f * acc[0][4 * j + 2 * h + e], 0.f) < thr[h];
+    if (!any) return;
+#pragma unroll
+    for (int j = 0; j < K / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * j + 2 * (lane & 3) + e;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float D = fmaxf((cn2[2 * j + e] + x2[h]) - 2.f * acc[0][4 * j + 2 * h + e], 0.f);
+          const float CC = fmaxf((cn2[2 * j + e] + cb2[h]) - 2.f * acc[1][4 * j + 2 * h + e], 0.f);
+          if (col < C && D < thr[h] && CC >= D && col != b[h]) {
+            float rank = D;
+            if (P.lam != 0.f) {
+              const float rd = 0.5f * ((db[h] + D) - CC);
+              rank = D + (P.lam * rd * rd) / fmaxf(db[h], 1e-30f);
+            }
+            insert<NE>(v[h], id[h], rank, col);
+          }
+        }
+      }
+  }
+
+  __device__ __forceinline__ void finish(const Params& P, const int (&p)[2], int n, int lane) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float ov[NE];
+        int oi[NE];
+#pragma unroll
+        for (int t = 0; t < NE; ++t) {
+          ov[t] = __shfl_xor_sync(0xffffffffu, v[h][t], off);
+          oi[t] = __shfl_xor_sync(0xffffffffu, id[h][t], off);
+        }
+#pragma unroll
+        for (int t = 0; t < NE; ++t) insert<NE>(v[h], id[h], ov[t], oi[t]);
+      }
+    if ((lane & 3) != 0) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (p[h] >= n) continue;
+#pragma unroll
+      for (int t = 0; t < NE; ++t) {
+        if (t >= P.n_extra) break;
+        const bool found = v[h][t] < INFINITY;
+        P.out_rank[(size_t)p[h] * P.n_extra + t] = found ? v[h][t] : INFINITY;
+        P.out_idx[(size_t)p[h] * P.n_extra + t] = found ? id[h][t] : -1;
+      }
+    }
+  }
+};
+
+// The running argmin of nearest_kernel on the one product X.c_j.
+struct NearestEpilogue {
+  static constexpr int kOps = 1;
+  struct Params {
+    const float* x2;
+    const float* cn2;
+    int* out_idx;
+    float* out_dist;
+  };
+  float x2[2], v[2];
+  int id[2];
+
+  __device__ __forceinline__ void init(const Params& P, const int (&p)[2], int n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      x2[h] = p[h] < n ? P.x2[p[h]] : 0.f;
+      v[h] = INFINITY;
+      id[h] = kIdNone;
+    }
+  }
+
+  template <int K>
+  __device__ __forceinline__ void tile(const Params& P, const float (&acc)[kOps][K],
+                                       const float (&cn2)[K / 2], int c0, int C, int lane) {
+#pragma unroll
+    for (int j = 0; j < K / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * j + 2 * (lane & 3) + e;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float D = fmaxf((cn2[2 * j + e] + x2[h]) - 2.f * acc[0][4 * j + 2 * h + e], 0.f);
+          if (col < C && before(D, col, v[h], id[h])) {
+            v[h] = D;
+            id[h] = col;
+          }
+        }
+      }
+  }
+
+  __device__ __forceinline__ void finish(const Params& P, const int (&p)[2], int n, int lane) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v[h], off);
+        const int oi = __shfl_xor_sync(0xffffffffu, id[h], off);
+        if (before(ov, oi, v[h], id[h])) {
+          v[h] = ov;
+          id[h] = oi;
+        }
+      }
+    if ((lane & 3) != 0) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (p[h] < n) {
+        P.out_idx[p[h]] = id[h];
+        P.out_dist[p[h]] = v[h];
+      }
+  }
+};
+
+// One block: kTcBM points (64 per consumer warpgroup) against every centroid
+// in ascending-id tiles of TileN.  One thread of the producer warpgroup
+// issues the TMA copies: the point-side slices once (resident) or with each
+// centroid slice
+// (streamed), each centroid tile as `slices` 64-column slices through a
+// ring of `stages` buffers (full barriers: bytes landed; empty barriers: the
+// consumer warps are done).  Each consumer warpgroup multiplies its 64
+// rows by the slice (kOps products sharing the B tile), waits, releases the
+// buffer, and after the tile's last slice runs the epilogue on its registers.
+template <class Epi, int TileN>
+__global__ void __launch_bounds__(kTcThreads, 1)
+tc_kernel(const __grid_constant__ CUtensorMap map_c, const __grid_constant__ CUtensorMap map_x,
+          const __grid_constant__ CUtensorMap map_cb, const TcShape sh,
+          const typename Epi::Params P) {
+  constexpr int kOps = Epi::kOps;
+  constexpr uint32_t kBBytes = TileN * kRowBytes;  // a centroid slice
+  constexpr uint32_t kABytes = kTcBM * kRowBytes;  // a point-side slice
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages], a_ready;
+  extern __shared__ uint8_t smem_raw[];
+  // 1,024-byte alignment: the swizzle pattern repeats every 8 rows of 128 B.
+  const uint32_t smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ring = smem + (sh.resident ? kOps * sh.slices * kABytes : 0u);
+  const uint32_t stage_bytes = kBBytes + (sh.resident ? 0u : kOps * kABytes);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int p0 = blockIdx.x * kTcBM;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < sh.stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), kTcWarps);
+    }
+    mbar_init(smem_u32(&a_ready), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kTcWarps) {  // producer warpgroup; one thread issues the copies
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp != kTcWarps || lane != 0) return;
+    const CUtensorMap* amap[2] = {&map_x, &map_cb};
+    if (sh.resident) {
+      const uint32_t bar = smem_u32(&a_ready);
+      mbar_expect_tx(bar, kOps * sh.slices * kABytes);
+      for (int op = 0; op < kOps; ++op)
+        for (int s = 0; s < sh.slices; ++s)
+          tma_load(smem + (op * sh.slices + s) * kABytes, amap[op], bar, s * kSliceCols, p0);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int c0 = 0; c0 < sh.C; c0 += TileN)
+      for (int s = 0; s < sh.slices; ++s) {
+        mbar_wait(smem_u32(&empty[stage]), phase ^ 1u);  // the first round passes
+        const uint32_t dst = ring + stage * stage_bytes, bar = smem_u32(&full[stage]);
+        mbar_expect_tx(bar, stage_bytes);
+        tma_load(dst, &map_c, bar, s * kSliceCols, c0);
+        if (!sh.resident)
+          for (int op = 0; op < kOps; ++op)
+            tma_load(dst + kBBytes + op * kABytes, amap[op], bar, s * kSliceCols, p0);
+        if (++stage == sh.stages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    return;
+  }
+
+  // Consumers.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = warp / 4;
+  const int r = p0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int p[2] = {r, r + 8};
+  Epi epi;
+  epi.init(P, p, sh.n);
+  if (sh.resident) mbar_wait(smem_u32(&a_ready), 0);
+  const uint32_t wg_rows = wg * 64 * kRowBytes;  // this warpgroup's rows of a point-side slice
+  float acc[kOps][TileN / 2];
+#pragma unroll
+  for (int op = 0; op < kOps; ++op)
+#pragma unroll
+    for (int i = 0; i < TileN / 2; ++i) acc[op][i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int c0 = 0; c0 < sh.C; c0 += TileN) {
+    // |c|^2 of this thread's columns, loaded together before the products
+    // so their latency hides behind them (past C: any valid row, masked).
+    float cn2[TileN / 4];
+#pragma unroll
+    for (int j = 0; j < TileN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        cn2[2 * j + e] = __ldg(P.cn2 + min(c0 + 8 * j + 2 * (lane & 3) + e, sh.C - 1));
+    for (int s = 0; s < sh.slices; ++s) {
+      mbar_wait(smem_u32(&full[stage]), phase);
+      const uint32_t bsl = ring + stage * stage_bytes;
+      uint32_t asl[kOps];
+#pragma unroll
+      for (int op = 0; op < kOps; ++op)
+        asl[op] = wg_rows + (sh.resident ? smem + (op * sh.slices + s) * kABytes
+                                         : bsl + kBBytes + op * kABytes);
+#pragma unroll
+      for (int op = 0; op < kOps; ++op) fence_regs(acc[op]);
+      wgmma_fence();
+      // Every k-step of the slice: columns past d read as zero.  (Skipping
+      // them under a run-time test makes ptxas serialize the wgmmas.)
+#pragma unroll
+      for (int k = 0; k < kSliceCols / 16; ++k) {
+        const uint64_t bdesc = sw128_desc(bsl + 32 * k);
+#pragma unroll
+        for (int op = 0; op < kOps; ++op)
+          Mma<TileN>::run(acc[op], sw128_desc(asl[op] + 32 * k), bdesc, (s > 0 || k > 0) ? 1 : 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int op = 0; op < kOps; ++op) fence_regs(acc[op]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(&empty[stage]));
+      if (++stage == sh.stages) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+    epi.tile(P, acc, cn2, c0, sh.C, lane);
+  }
+  epi.finish(P, p, sh.n, lane);
+}
+
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda on the link line).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &q);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    const bool ok = err == cudaSuccess && q == cudaDriverEntryPointSuccess;
+    return ok ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A (rows, cols) row-major bf16 matrix read in boxes of box_rows x 64
+// columns with the 128-byte swizzle; elements past rows or cols read 0.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kSliceCols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// X (n, d) and, for two products, Cb (n, d); cents (C, d); bf16, d a
+// multiple of 16, 16-byte aligned rows.
+template <class Epi, int TileN>
+cudaError_t launch_tc(const void* X, const void* Cb, const void* cents, int n, int C, int d,
+                      const typename Epi::Params& P, cudaStream_t s) {
+  constexpr int kOps = Epi::kOps;
+  const int slices = (d + kSliceCols - 1) / kSliceCols;
+  const int a_bytes = kOps * slices * kTcBM * kRowBytes;
+  const int b_bytes = TileN * kRowBytes;
+  const bool resident = a_bytes + kMinStages * b_bytes <= kSmemBudget;
+  const int stage_bytes = b_bytes + (resident ? 0 : kOps * kTcBM * kRowBytes);
+  const int fit = (kSmemBudget - (resident ? a_bytes : 0)) / stage_bytes;
+  const int stages = fit < kMaxStages ? fit : kMaxStages;
+  const int smem = (resident ? a_bytes : 0) + stages * stage_bytes + 1024;
+  CUtensorMap mc, mx, mb;
+  cudaError_t err = make_map(&mc, cents, C, d, TileN);
+  if (err == cudaSuccess) err = make_map(&mx, X, n, d, kTcBM);
+  if (err == cudaSuccess) err = make_map(&mb, kOps > 1 ? Cb : X, n, d, kTcBM);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(tc_kernel<Epi, TileN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const TcShape sh{n, C, slices, stages, resident ? 1 : 0};
+  const unsigned grid = (unsigned)((n + kTcBM - 1) / kTcBM);
+  tc_kernel<Epi, TileN><<<grid, kTcThreads, smem, s>>>(mc, mx, mb, sh, P);
+  return cudaGetLastError();
+}
+
+// One warp per row: db[r] = max((|x_r|^2 + |c_b|^2) - 2 x_r.c_b, 0), the
+// expansion the tiles use (the reference's dot_general of X and Cb).
+__global__ void base_dist_kernel(const uint16_t* __restrict__ X, const int* __restrict__ base,
+                                 const uint16_t* __restrict__ cents, const float* __restrict__ x2,
+                                 const float* __restrict__ cn2, int n, int d,
+                                 float* __restrict__ db) {
+  const int r = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= n) return;  // whole warps leave together
+  const int b = base[r];
+  float acc = 0.f;
+  for (int k = lane; k < d; k += 32)
+    acc = fmaf(BF16::get(X, (size_t)r * d + k), BF16::get(cents, (size_t)b * d + k), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) db[r] = fmaxf((x2[r] + cn2[b]) - 2.f * acc, 0.f);
+}
+
+template <int NE>
+cudaError_t launch_replica_tc(const void* X, const void* Cb, const void* cents, const int* base,
+                              float* db, bool db_given, float* x2, float* cn2, int* oi,
+                              float* orank, int n, int C, int d, int n_extra, float bt, float lam,
+                              cudaStream_t s) {
+  constexpr int kWarpsPerBlock = 8;
+  const unsigned grid = (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  if (!db_given) {
+    base_dist_kernel<<<grid, 32 * kWarpsPerBlock, 0, s>>>(static_cast<const uint16_t*>(X), base,
+                                                          static_cast<const uint16_t*>(cents), x2,
+                                                          cn2, n, d, db);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const typename ReplicaEpilogue<NE>::Params P{base, db, x2, cn2, oi, orank, n_extra, bt, lam};
+  return launch_tc<ReplicaEpilogue<NE>, kReplicaBN>(X, Cb, cents, n, C, d, P, s);
+}
+
 }  // namespace
 
-// X (n, d) and cents (C, d): bf16 ? bfloat16 : float32, row-major.  x2 (n,),
-// cn2 (C,) f32 scratch.  out_idx (n,) i32, out_dist (n,) f32.
+// X (n, d) and cents (C, d): bf16 ? bfloat16 : float32, row-major (bf16: d a
+// multiple of 16, rows 16-byte aligned).  x2 (n,), cn2 (C,) f32 scratch.
+// out_idx (n,) i32, out_dist (n,) f32.
 extern "C" int spf_nearest_centroid(const void* X, const void* cents, void* x2, void* cn2,
                                     void* out_idx, void* out_dist, int n, int C, int d, int bf16,
                                     void* stream) {
   if (n <= 0) return 0;
-  if (C <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  if (C <= 0 || d <= 0 || (bf16 && d % 16 != 0)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* x2p = static_cast<float*>(x2);
   float* cn2p = static_cast<float*>(cn2);
   int* oi = static_cast<int*>(out_idx);
   float* od = static_cast<float*>(out_dist);
-  return bf16 ? (int)launch_nearest<BF16>(X, cents, x2p, cn2p, oi, od, n, C, d, s)
-              : (int)launch_nearest<F32>(X, cents, x2p, cn2p, oi, od, n, C, d, s);
+  if (!bf16) return (int)launch_nearest<F32>(X, cents, x2p, cn2p, oi, od, n, C, d, s);
+  const cudaError_t err = sqnorms<BF16>(X, n, cents, C, d, x2p, cn2p, s);
+  if (err != cudaSuccess) return (int)err;
+  const NearestEpilogue::Params P{x2p, cn2p, oi, od};
+  return (int)launch_tc<NearestEpilogue, kNearestBN>(X, nullptr, cents, n, C, d, P, s);
 }
 
 // X (n, d) and cents (C, d): bf16 ? bfloat16 : float32, row-major.  base (n,)
-// i32 in [0, C).  db (n,) f32 or null (computed).  x2 (n,), cn2 (C,) f32
-// scratch.  out_idx (n, n_extra) i32, out_rank (n, n_extra) f32.
+// i32 in [0, C).  Cb (n, d) = cents[base], bf16 only (null for f32).  db
+// (n,) f32: dist(p, c_base) when db_given, else scratch the kernel fills.
+// x2 (n,), cn2 (C,) f32 scratch.  out_idx (n, n_extra) i32, out_rank
+// (n, n_extra) f32.  bf16: d a multiple of 16, rows 16-byte aligned.
 extern "C" int spf_replica_topk(const void* X, const void* base, const void* cents,
-                                const void* db, void* x2, void* cn2, void* out_idx,
-                                void* out_rank, int n, int C, int d, int n_extra, float bt,
-                                float lam, int bf16, void* stream) {
+                                const void* Cb, void* db, int db_given, void* x2, void* cn2,
+                                void* out_idx, void* out_rank, int n, int C, int d, int n_extra,
+                                float bt, float lam, int bf16, void* stream) {
   if (n <= 0) return 0;
   if (n_extra < 1 || n_extra > 8 || d <= 0) return (int)cudaErrorInvalidValue;
+  if (bf16 && (d % 16 != 0 || Cb == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* b = static_cast<const int*>(base);
-  const float* dbp = static_cast<const float*>(db);
+  float* dbp = static_cast<float*>(db);
   float* x2p = static_cast<float*>(x2);
   float* cn2p = static_cast<float*>(cn2);
   int* oi = static_cast<int*>(out_idx);
   float* orank = static_cast<float*>(out_rank);
-  return bf16 ? (int)launch_all<BF16>(X, b, cents, dbp, x2p, cn2p, oi, orank, n, C, d, n_extra,
-                                      bt, lam, s)
-              : (int)launch_all<F32>(X, b, cents, dbp, x2p, cn2p, oi, orank, n, C, d, n_extra,
-                                     bt, lam, s);
+  if (!bf16)
+    return (int)launch_all<F32>(X, b, cents, db_given ? dbp : nullptr, x2p, cn2p, oi, orank, n, C,
+                                d, n_extra, bt, lam, s);
+  const cudaError_t err = sqnorms<BF16>(X, n, cents, C, d, x2p, cn2p, s);
+  if (err != cudaSuccess) return (int)err;
+  // The running list is the next power of two >= n_extra, as in launch_all.
+  const bool given = db_given != 0;
+  if (n_extra <= 1)
+    return (int)launch_replica_tc<1>(X, Cb, cents, b, dbp, given, x2p, cn2p, oi, orank, n, C, d,
+                                     n_extra, bt, lam, s);
+  if (n_extra <= 2)
+    return (int)launch_replica_tc<2>(X, Cb, cents, b, dbp, given, x2p, cn2p, oi, orank, n, C, d,
+                                     n_extra, bt, lam, s);
+  if (n_extra <= 4)
+    return (int)launch_replica_tc<4>(X, Cb, cents, b, dbp, given, x2p, cn2p, oi, orank, n, C, d,
+                                     n_extra, bt, lam, s);
+  return (int)launch_replica_tc<8>(X, Cb, cents, b, dbp, given, x2p, cn2p, oi, orank, n, C, d,
+                                   n_extra, bt, lam, s);
 }

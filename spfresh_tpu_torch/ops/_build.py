@@ -118,7 +118,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.spf_window_scan.restype = i
     lib.spf_replica_topk.argtypes = [
-        p, p, p, p,          # X, base, cents, db (nullable)
+        p, p, p, p,          # X, base, cents, Cb = cents[base] (bf16; null for f32)
+        p, i,                # db (n,), db given (0: scratch the kernel fills)
         p, p,                # scratch: x2 (n,), cn2 (C,)
         p, p,                # out idx (n, n_extra), out rank (n, n_extra)
         i, i, i, i,          # n, C, d, n_extra

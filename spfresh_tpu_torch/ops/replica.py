@@ -5,7 +5,11 @@
 ``replica_topk`` and ``nearest_centroid`` launch their CUDA kernels in
 ``csrc/replica.cu`` for CUDA tensors and run ``replica_topk_plain`` and
 ``nearest_centroid_plain`` for CPU tensors; anything else raises.  Nothing
-on a CUDA build path calls a plain version.
+on a CUDA build path calls a plain version.  bf16 inputs take the
+tensor-core kernels: the wrapper zero-pads d to a multiple of 16
+(``pad_depth``; zero columns change no dot product) and, for the replica,
+gathers the base centroids ``cents[base]`` into a contiguous (n, d) tensor
+that the kernel reads like X.  f32 inputs take the CUDA-core kernels.
 
 ``replica_topk_elementwise`` is the unfused closure pass of the JAX
 package (``_replica_pass_xla`` with ``_replica_select_from_dists``) and
@@ -25,6 +29,7 @@ from spfresh_tpu_torch.ops.distances import EUCLIDEAN, pairwise_distance
 from spfresh_tpu_torch.ops.topk import smallest_k
 
 MAX_EXTRA = 8  # the kernel's register lists hold at most 8 replicas
+DEPTH_MULTIPLE = 16  # bf16 kernels: d in whole wgmma k-steps (16 bf16 values)
 # Bound on each (t, C) f32 workspace of the unfused closure pass: the JAX
 # package's ~1 GB rule, tile = 2^28 // C rows (hierarchical.py:1016,1032).
 PLAIN_TILE_ELEMS = 1 << 28
@@ -85,6 +90,20 @@ def replica_topk_plain(X, base, cents, bt: float, n_extra: int, db=None,
                                     soar_lambda=soar_lambda)
 
 
+def pad_depth(t: torch.Tensor, multiple: int = DEPTH_MULTIPLE) -> torch.Tensor:
+    """``t`` (rows, d) with zero columns appended up to a multiple of
+    ``multiple``; ``t`` itself when d already is one.  Zero columns change
+    no squared norm and no dot product."""
+    extra = -t.shape[1] % multiple
+    return torch.nn.functional.pad(t, (0, extra)) if extra else t
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it, whose data starts on a 16-byte boundary (TMA
+    reads whole 16-byte units)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check(X, base, cents, n_extra: int, db) -> None:
     if X.ndim != 2 or cents.ndim != 2 or X.shape[1] != cents.shape[1]:
         raise ValueError(f"expected X (n, d) and cents (C, d); got {tuple(X.shape)}, "
@@ -122,26 +141,33 @@ def replica_topk(X: torch.Tensor, base: torch.Tensor, cents: torch.Tensor, bt: f
     for name, t in (("X", X), ("base", base), ("cents", cents), ("db", db)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    n, d = X.shape
+    n = X.shape[0]
     C = cents.shape[0]
-    if max(n * d, C * d) >= 2**31:
-        raise ValueError("X or cents exceed 2^31 elements")
     # The kernel gathers base-centroid rows by these ids: check the range
     # (one device sync per call; the build makes one call).
     if n and (int(base.min()) < 0 or int(base.max()) >= C):
         raise ValueError(f"base ids must lie in [0, {C})")
     dev = X.device
+    bf16 = X.dtype == torch.bfloat16
+    if bf16:
+        X, cents = _aligned(pad_depth(X)), _aligned(pad_depth(cents))
+    d = X.shape[1]
+    if max(n * d, C * d) >= 2**31:  # after padding: the kernels index the padded rows
+        raise ValueError("X or cents exceed 2^31 elements")
+    # Read like X by the kernel.
+    Cb = cents.index_select(0, base.long()) if bf16 else None
     idx = torch.empty((n, n_extra), dtype=torch.int32, device=dev)
     rank = torch.empty((n, n_extra), dtype=torch.float32, device=dev)
     x2 = torch.empty((n,), dtype=torch.float32, device=dev)
     cn2 = torch.empty((C,), dtype=torch.float32, device=dev)
+    db_buf = db if db is not None else torch.empty((n,), dtype=torch.float32, device=dev)
     lib = _build.library()
     rc = lib.spf_replica_topk(
         X.data_ptr(), base.data_ptr(), cents.data_ptr(),
-        db.data_ptr() if db is not None else None,
+        Cb.data_ptr() if Cb is not None else None,
+        db_buf.data_ptr(), int(db is not None),
         x2.data_ptr(), cn2.data_ptr(), idx.data_ptr(), rank.data_ptr(),
-        n, C, d, n_extra, float(bt), float(soar_lambda or 0.0),
-        int(X.dtype == torch.bfloat16),
+        n, C, d, n_extra, float(bt), float(soar_lambda or 0.0), int(bf16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "replica")
@@ -195,6 +221,9 @@ def nearest_centroid(X: torch.Tensor, cents: torch.Tensor):
     if X.device.type != "cuda":
         raise ValueError(f"no nearest-centroid kernel for device {X.device}")
     X, cents = X.contiguous(), cents.contiguous()
+    bf16 = X.dtype == torch.bfloat16
+    if bf16:
+        X, cents = _aligned(pad_depth(X)), _aligned(pad_depth(cents))
     n, d = X.shape
     C = cents.shape[0]
     if max(n * d, C * d) >= 2**31:
@@ -206,7 +235,7 @@ def nearest_centroid(X: torch.Tensor, cents: torch.Tensor):
     cn2 = torch.empty((C,), dtype=torch.float32, device=dev)
     rc = _build.library().spf_nearest_centroid(
         X.data_ptr(), cents.data_ptr(), x2.data_ptr(), cn2.data_ptr(),
-        base.data_ptr(), db.data_ptr(), n, C, d, int(X.dtype == torch.bfloat16),
+        base.data_ptr(), db.data_ptr(), n, C, d, int(bf16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "nearest centroid")
