@@ -14,13 +14,22 @@ Phases, each printing a line:
               of every route (SMALL_CASES: f32 and bf16, d 5 to 960, SOAR
               on and off, n_extra 1 to 8, db given and computed, centroids
               near points), and beside each the cuBLAS time of its
-              products alone (gemm_ms, a yardstick the port never calls).
+              products alone (gemm_ms, a yardstick the port never calls);
+              the slab rerank also at its edges (d_pad 16, 112 and 1,024,
+              f32, bf16 and int8, every metric, a pad no tile divides and
+              one that wraps the ring, one slab under 4,096 pairs, one
+              pair, out-of-range rows giving NaN rows), and its slab-major
+              schedule on the card against its CPU form.
 4. main     — the bench corpus (1M x 128 Gaussian mixture, seed 12345), a
               KMeans++ bf16 build through SpannIndexBuilder on "cuda",
               padded_view(), exact ground truth on the card, and an nprobe
               sweep to recall@10 >= 0.90; asserts the rerank and replica
               kernels ran in it; then device time by operation
-              (torch.profiler) over 3 searches at the recall point.
+              (torch.profiler) over 3 searches at the recall point, the
+              rerank on the phase's own stage-1 rows, and a full-probe
+              search of 8,192 queries in one batch (the probe axis taken
+              in chunks; peak memory logged) whose first 64 rows must equal
+              an unchunked search.
 5. live     — live updates on main's index through
               spfresh_tpu_torch.lire.SpFreshIndex (LireConfig max 512, min
               16, a store under build/ deleted after): benchmarks/
@@ -46,7 +55,9 @@ Phases, each printing a line:
               scorer (rerank_int8mxu) then scores the phase's queries over
               the phase's own int8 view (codes transposed to (C, d_pad,
               pad)), is held to its plain version, and its top-10 per query
-              is compared with the elementwise int8 rerank's.
+              is compared with the elementwise int8 rerank's.  The int8
+              rerank is also held to its plain version on the phase's own
+              windowed stage-1 rows, centered queries and scales.
 7. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
               d 960, 16,384 queries, seed 12345), a Manhattan bf16 build:
               the L1/Linf pairwise kernel runs the build's assignments,
@@ -262,11 +273,13 @@ def phase_kernels(torch, report):
     # the output; operations: subtract, multiply, add per slab element.
     probed = int(torch.unique(rows).numel())
     nbytes = probed * pad * d_pad * 2 + Q * d_pad * 4 + Q * nprobe * 4 + Q * nprobe * pad * 4
-    log(f"kernel rerank: the rows probe {probed} of {cpad} slabs")
+    log(f"kernel rerank: the rows probe {probed} of {cpad} slabs; "
+        f"{schedule_stats(torch, rows, cpad)}")
     report["rerank"] = {"max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
                         "library_ms": None,
                         **bound(nbytes, 3 * Q * nprobe * pad * d_pad, F32_FLOPS)}
     del slabs, got, want, err
+    rerank_edge_cases(torch)
 
     # Kernel 2: n points of the bench mixture, C medoid-like centroids,
     # base = nearest centroid (what the build hands the replica pass).
@@ -311,6 +324,108 @@ def phase_kernels(torch, report):
     kernel_rerank_int8(torch, report)
     kernel_pairwise(torch, report)
     kernel_int8mxu(torch, report)
+
+
+def schedule_stats(torch, rows, cpad: int) -> str:
+    """How the rerank's slab-major schedule groups ``rows``: the slabs they
+    probe, the pairs per probed slab (mean, largest) and the work items.
+    Asserts that the counting sort on the card gives the CPU form's items
+    and totals, and the same slab at every position of a permutation of
+    the pairs (a slab's pairs may come in another order)."""
+    from spfresh_tpu_torch.ops import rerank
+
+    group = rerank.kernel_geometry(128, torch.bfloat16)["group"]
+    order, items, totals = rerank.rerank_schedule(rows, cpad, group)
+    want = rerank.rerank_schedule(rows.cpu(), cpad, group)
+    n_items = int(totals[0])
+    assert torch.equal(totals.cpu(), want[2]), f"schedule totals {totals} != {want[2]}"
+    assert torch.equal(items[:n_items].cpu(), want[1][:n_items]), "schedule items differ"
+    flat = rows.reshape(-1).long()
+    key = torch.where((flat < 0) | (flat >= cpad), cpad, flat)
+    assert torch.equal(torch.sort(order).values.cpu(), torch.arange(flat.numel(), dtype=torch.int32))
+    assert torch.equal(key[order.long()].cpu(), key.cpu()[want[0].long()]), "schedule order differs"
+    _, per = torch.unique(flat[key < cpad], return_counts=True)
+    return (f"{per.numel()} slabs probed, pairs per probed slab mean "
+            f"{float(per.float().mean()):.2f} largest {int(per.max())}; {n_items} work items "
+            f"of <= {group} pairs (mean {int(per.sum()) / max(1, n_items):.2f})")
+
+
+def rerank_compare(torch, queries, rows, slabs, metric: str, **kw) -> tuple:
+    """(max relative error, max absolute error) of the rerank kernel against
+    its plain version on the same inputs; out-of-range rows must give NaN
+    rows on the card and are left out of the comparison."""
+    from spfresh_tpu_torch.ops import rerank
+
+    cpad = slabs.shape[0]
+    bad = (rows < 0) | (rows >= cpad)
+    got = rerank.padded_rerank_distances(queries, rows, slabs, metric, **kw)
+    want = rerank.padded_rerank_distances_plain(queries, torch.where(bad, 0, rows), slabs,
+                                                metric, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[bad]).all()), "an out-of-range row did not give NaN"
+    got, want = got[~bad], want[~bad]
+    assert bool(torch.isfinite(got).all()), "the kernel left a non-finite distance"
+    err = (got - want).abs()
+    if err.numel() == 0:
+        return 0.0, 0.0
+    return float((err / want.abs().clamp_min(1.0)).max()), float(err.max())
+
+
+def rerank_edge_cases(torch) -> None:
+    """The rerank (float and int8 cases) against its plain version where the
+    schedule and the tile ring have edges, within RERANK_RTOL: d_pad 16,
+    112 and 1,024 for f32, bf16 and int8 slabs and every metric, at a pad
+    that no row tile divides (37) and one that wraps the ring (1,100);
+    every pair on one slab (many work items for one slab); one pair; and
+    out-of-range rows, which must give NaN rows."""
+    from spfresh_tpu_torch.ops import rerank
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def inputs(Q, nprobe, cpad, pad, d_pad, sd, rows=None):
+        if sd == torch.int8:  # every byte value, -128 too
+            slabs = torch.randint(-128, 128, (cpad, pad, d_pad), generator=g, device=dev,
+                                  dtype=torch.int8)
+        else:
+            slabs = torch.randn((cpad, pad, d_pad), generator=g, device=dev).to(sd)
+        q = torch.randn((Q, d_pad), generator=g, device=dev)
+        if rows is None:
+            rows = torch.randint(0, cpad, (Q, nprobe), generator=g, device=dev,
+                                 dtype=torch.int32)
+        kw = {}
+        if sd == torch.int8:
+            kw = dict(scales=torch.rand(rows.shape, generator=g, device=dev) * 0.02 + 0.005,
+                      centered_queries=torch.randn((*rows.shape, d_pad), generator=g,
+                                                   device=dev))
+        return q, rows, slabs, kw
+
+    worst, n = 0.0, 0
+    for d_pad in (16, 112, 1024):
+        for sd in (torch.float32, torch.bfloat16, torch.int8):
+            geo = rerank.kernel_geometry(d_pad, sd)
+            for pad in (37, 1100):
+                q, rows, slabs, kw = inputs(40, 5, 24, pad, d_pad, sd)
+                for metric in ("Euclidean", "Manhattan", "Chebyshev"):
+                    rel, _ = rerank_compare(torch, q, rows, slabs, metric, **kw)
+                    assert rel <= RERANK_RTOL, (
+                        f"rerank edge d_pad={d_pad} {sd} pad={pad} {metric}: rel err {rel}")
+                    worst, n = max(worst, rel), n + 1
+            log(f"kernel rerank edges: d_pad={d_pad} {sd} geometry {geo}")
+    for sd in (torch.bfloat16, torch.int8):
+        hot = torch.full((512, 8), 3, dtype=torch.int32, device=dev)
+        one = torch.full((1, 1), 5, dtype=torch.int32, device=dev)
+        bad = torch.randint(0, 16, (64, 6), generator=g, device=dev, dtype=torch.int32)
+        bad[0, 0], bad[1, 5], bad[7, 2], bad[63, 0] = -1, 16, -2**31, 2**31 - 1
+        for rows in (hot, one, bad):
+            q, rows, slabs, kw = inputs(rows.shape[0], rows.shape[1], 16, 336, 128, sd, rows)
+            for metric in ("Euclidean", "Manhattan", "Chebyshev"):
+                rel, _ = rerank_compare(torch, q, rows, slabs, metric, **kw)
+                assert rel <= RERANK_RTOL, f"rerank edge {sd} rows {tuple(rows.shape)}: {rel}"
+                worst, n = max(worst, rel), n + 1
+        log(f"kernel rerank edges: {sd} one slab x 4,096 pairs ({schedule_stats(torch, hot, 16)})"
+            f", one pair, and 4 out-of-range rows (NaN rows) agree")
+    log(f"kernel rerank edges: {n} cases within rtol {RERANK_RTOL}, worst rel err {worst:.3e}")
 
 
 # replica_small_checks' inputs: (dtype, d, SOAR lambda, n_extra, db given,
@@ -568,7 +683,8 @@ def kernel_rerank_int8(torch, report):
     # the probed int8 slabs once, the centered queries, queries, rows,
     # scales and the output; operations: dequantize, subtract, multiply, add.
     probed = int(torch.unique(rows).numel())
-    log(f"kernel rerank_int8: the rows probe {probed} of {cpad} slabs")
+    log(f"kernel rerank_int8: the rows probe {probed} of {cpad} slabs; "
+        f"{schedule_stats(torch, rows, cpad)}")
     nbytes = (probed * pad * d_pad + Q * nprobe * d_pad * 4 + Q * d_pad * 4 + Q * nprobe * 8
               + Q * nprobe * pad * 4)
     report["rerank_int8"] = {"max_abs_err": max(p[1] for p in parts), "ms": parts[0][2],
@@ -787,6 +903,8 @@ def phase_main(torch, n: int, nq: int, report) -> None:
         for name, c in counts.items():
             report[name]["launches"] = c
         profile_search(torch, index, queries, nprobe)
+        kernel_rerank_view(torch, view, queries, nprobe, "Euclidean", "main")
+        full_probe_check(torch, index, queries)
     return index, data, queries, gt, nprobe
 
 
@@ -1065,11 +1183,15 @@ def phase_metric(torch, metric: str, n: int, nq: int, report, target) -> None:
 
 
 def kernel_rerank_view(torch, view, queries, nprobe: int, metric: str, tag: str) -> None:
-    """The float rerank at a metric phase's own shape: the phase's bf16
-    slabs (d_pad 1,024), its first query batch and the rows its stage 1
-    probes at ``nprobe``, against the plain version within RERANK_RTOL.
-    At d_pad 1,024 each lane walks 8 16-byte chunks of a row and stages
-    the query in 8 passes, which the main shape (d_pad 128) never runs."""
+    """The rerank on a phase's own view and rows: its slabs (bf16 at d_pad
+    128 in ``main``, 1,024 in ``manhattan`` and ``chebyshev``; int8 in
+    ``large``), its first query batch (8,192) and the rows its stage 1
+    probes at ``nprobe`` (the windowed scan in ``large``, whose int8 case
+    takes the centered queries and ``view.scales[rows]`` as
+    ``_search_padded`` builds them), against the plain version within
+    RERANK_RTOL.  Logs how the slab-major schedule groups these rows, the
+    kernel and plain times and the bound: the probed slabs once, the
+    queries (int8: the centered block and scales), rows and output."""
     from spfresh_tpu_torch.ops import rerank
     from spfresh_tpu_torch.ops.topk import centroid_topk
 
@@ -1079,26 +1201,73 @@ def kernel_rerank_view(torch, view, queries, nprobe: int, metric: str, tag: str)
     qpad[:, : queries.shape[1]] = torch.from_numpy(queries[:Q]).to(dev)
     _, rows = centroid_topk(qpad.to(view.centroids.dtype), view.centroids, view.cent_valid,
                             nprobe, metric)
-    rows = rows.to(torch.int32)
     slabs = view.vectors3d
-    got = rerank.padded_rerank_distances(qpad, rows, slabs, metric)
-    want = rerank.padded_rerank_distances_plain(qpad, rows, slabs, metric)
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    rel = float((err / want.abs().clamp_min(1.0)).max())
-    equal = bool(torch.equal(got, want))
-    del got, want, err
+    cpad, pad, d_pad = slabs.shape
+    kw = {}
+    if slabs.dtype == torch.int8:
+        kw = dict(scales=view.scales[rows], centered_queries=qpad[:, None, :] - view.centroids[rows])
+    rows = rows.to(torch.int32)
+    rel, max_abs = rerank_compare(torch, qpad, rows, slabs, metric, **kw)
     assert rel <= RERANK_RTOL, f"{tag}: rerank {metric} rel err {rel} > {RERANK_RTOL}"
-    ms = cuda_ms(torch, lambda: rerank.padded_rerank_distances(qpad, rows, slabs, metric), 5)
+    ms = cuda_ms(torch, lambda: rerank.padded_rerank_distances(qpad, rows, slabs, metric, **kw),
+                 10)
     plain_ms = cuda_ms(torch, lambda: rerank.padded_rerank_distances_plain(
-        qpad, rows, slabs, metric), 1)
-    _, pad, d_pad = slabs.shape
+        qpad, rows, slabs, metric, **kw), 1)
     probed = int(torch.unique(rows).numel())
-    gbps = Q * nprobe * pad * d_pad * slabs.element_size() / (ms * 1e-3) / 1e9
-    log(f"{tag}: kernel rerank at the phase's shape: Q={Q} nprobe={nprobe} pad={pad} "
-        f"d_pad={d_pad} Cpad={slabs.shape[0]} {slabs.dtype} {metric} max_rel_err={rel:.3e} "
-        f"(rtol {RERANK_RTOL}) bit_equal={equal} kernel={ms:.4f} ms ({gbps:.0f} GB/s slab "
-        f"reads; the rows probe {probed} slabs) plain={plain_ms:.4f} ms")
+    per_pair = 4 + pad * 4 + (d_pad * 4 + 4 if kw else 0)  # row, output (+ centered row, scale)
+    b = bound(probed * pad * d_pad * slabs.element_size() + Q * d_pad * 4 + Q * nprobe * per_pair,
+              (4 if kw else 3) * Q * nprobe * pad * d_pad, F32_FLOPS)
+    gbps = probed * pad * d_pad * slabs.element_size() / (ms * 1e-3) / 1e9
+    log(f"{tag}: kernel rerank on the phase's rows: Q={Q} nprobe={nprobe} pad={pad} "
+        f"d_pad={d_pad} Cpad={cpad} {slabs.dtype} {metric} max_rel_err={rel:.3e} "
+        f"max_abs_err={max_abs:.3e} (rtol {RERANK_RTOL}) kernel={ms:.4f} ms ({gbps:.0f} GB/s of "
+        f"probed slabs) plain={plain_ms:.4f} ms bound={b['bound_ms']:.4f} ms ({b['bound_by']}); "
+        f"{schedule_stats(torch, rows, cpad)}")
+
+
+def full_probe_check(torch, index, queries, nq: int = 8192, nsub: int = 64) -> None:
+    """A full-probe search of ``nq`` queries in one batch of the phase's
+    8,192: the candidate block of all probes would be nq x C x pad x 4 bytes
+    for the distances alone, so the search takes the probe axis in chunks
+    (``PROBE_CHUNK_BYTES``).  It must complete on the card, give finite
+    distances and no repeated id, and its first ``nsub`` rows must equal an
+    unchunked search of those queries (the budget monkeypatched up)."""
+    from spfresh_tpu_torch.index import spann
+
+    C = index.num_clusters
+    view = index.padded_view()
+    qs = queries[:nq]
+    per_probe = nq * view.pad * spann._CAND_BYTES
+    chunk = max(1, spann.PROBE_CHUNK_BYTES // per_probe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ids, dists = index.search(qs, 10, nprobe=C)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    assert chunk < C, f"{chunk} probes per chunk: the full probe is not chunked"
+    assert np.isfinite(dists).all() and (ids >= 0).all(), "full probe left an empty slot"
+    assert_no_duplicates(ids)
+    threshold = spann.PROBE_CHUNK_BYTES
+    spann.PROBE_CHUNK_BYTES = 1 << 62
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        want, want_d = index.search(qs[:nsub], 10, nprobe=C)
+        torch.cuda.synchronize()
+        peak_one = torch.cuda.max_memory_allocated()
+    finally:
+        spann.PROBE_CHUNK_BYTES = threshold
+    differ = int((ids[:nsub] != want).sum())
+    log(f"main: full probe (nprobe={C}) of {len(qs)} queries in one batch: {chunk} probes per "
+        f"chunk ({-(-C // chunk)} chunks), {wall:.2f} s, peak memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the index; the "
+        f"unchunked distances alone would be {len(qs) * C * view.pad * 4 / 2**30:.1f} GiB); "
+        f"{differ} of {want.size} ids of {nsub} queries differ from an unchunked search "
+        f"(peak {peak_one / 2**30:.2f} GiB)")
+    assert differ == 0, f"{differ} ids differ between the chunked and unchunked full probe"
+    np.testing.assert_array_equal(dists[:nsub], want_d)
 
 
 def write_corpus(path, n: int, d: int, spread: float, seed: int):
@@ -1387,6 +1556,7 @@ def phase_large(torch, n: int, nq: int, report) -> None:
     assert differ <= want.size // 1000, f"{differ} of {want.size} ids differ from the CPU path"
     del cpu, want
     profile_search(torch, index, queries, nprobe, tag="profile large")
+    kernel_rerank_view(torch, view, queries, nprobe, "Euclidean", "large")
     large_int8mxu(torch, index, view, queries, nprobe, report)
     compare_bf16(torch, cfg, data, queries, gt, index, (nprobe, 2 * nprobe))
 

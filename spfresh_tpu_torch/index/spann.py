@@ -62,6 +62,12 @@ CENTROIDS_FILE = "centroids.npy.gz"
 PACKED_FILE = "postings.csr"
 _F32_EPS = float(np.finfo(np.float32).eps)
 _PACK_CHUNK = 1 << 18  # member rows per slab-pack step (bounds the gather)
+# Bound on one query batch's candidate block in a search: past it the probe
+# axis is taken in chunks (``_search_padded``), as in the reference (~1 GB).
+PROBE_CHUNK_BYTES = 1 << 30
+# Bytes a candidate holds in the block: its f32 distance, int32 id and the
+# int64 key of the tie-stable selection.
+_CAND_BYTES = 16
 
 
 def _round_up(x: int, m: int) -> int:
@@ -95,39 +101,69 @@ def _max_multiplicity(all_ids: np.ndarray) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _probe_block(queries, view: "PaddedView", rows, cent_d, metric: str, thr):
+    """Distances and ids (Q, n, pad) of the candidates of the probed slabs
+    ``rows`` (Q, n): the slab rerank (int8 slabs: the centered queries
+    q - c_row and the probed postings' scales), +inf (and id -1) past a
+    posting's length or for an invalid probe, +inf past the pruning
+    threshold ``thr`` (Q,) when it is given."""
+    rows32 = rows.to(torch.int32).contiguous()
+    if view.vectors3d.dtype == torch.int8:
+        qc = queries[:, None, :] - view.centroids[rows]  # (Q, n, d_pad) f32
+        d = padded_rerank_distances(queries, rows32, view.vectors3d, metric,
+                                    scales=view.scales[rows], centered_queries=qc)
+    else:
+        d = padded_rerank_distances(queries, rows32, view.vectors3d, metric)
+    ar = torch.arange(view.pad, device=queries.device)
+    valid = (ar < view.lens[rows][..., None]) & torch.isfinite(cent_d)[..., None]
+    inf = torch.full_like(d, float("inf"))
+    cand_ids = torch.where(valid, view.ids2d[rows], torch.full_like(view.ids2d[rows], -1))
+    d = torch.where(valid, d, inf)
+    if thr is not None:
+        d = torch.where(d <= thr[:, None, None], d, inf)
+    return d, cand_ids
+
+
 def _search_padded(queries, view: "PaddedView", *, k: int, nprobe: int, metric: str,
                    prune_factor: Optional[float]):
     """probe -> slab rerank -> masked dedup top-k for one query batch.
 
     queries (Q, d_pad) f32 on the view's device.  Stage 1 rounds the queries
     to the centroid dtype, as the reference does; the rerank uses the f32
-    queries (int8 slabs: the centered queries q - c_row and the probed
-    postings' scales).  Returns (ids (Q, k) int32 [-1 = no hit], dists
-    (Q, k) f32)."""
+    queries.  When the candidate block of all nprobe probes would pass
+    ``PROBE_CHUNK_BYTES``, the probes are taken ``probe_chunk`` at a time
+    and each chunk is folded into a running tie-stable top-kk per query,
+    kk = max(k, min(k * max_dup, nprobe * pad)), as the reference's
+    ``_search_kernel_probe_chunked`` does.  The kept candidates precede
+    the chunk's and hold the lowest columns among equal values, so the
+    running set is the unchunked search's top-kk in its order, and the
+    dedup top-k (the k-th distinct id lies within rank k * max_dup)
+    returns the same ids.  Pruning keeps the first probe's threshold.
+    Returns (ids (Q, k) int32 [-1 = no hit], dists (Q, k) f32)."""
     Q = queries.shape[0]
     pad = view.pad
     qf = queries.to(view.centroids.dtype)
     cent_d, rows = centroid_topk(qf, view.centroids, view.cent_valid, nprobe, metric)
-    rows32 = rows.to(torch.int32)
-    if view.vectors3d.dtype == torch.int8:
-        qc = queries[:, None, :] - view.centroids[rows]  # (Q, nprobe, d_pad) f32
-        d = padded_rerank_distances(queries, rows32, view.vectors3d, metric,
-                                    scales=view.scales[rows], centered_queries=qc)
-    else:
-        d = padded_rerank_distances(queries, rows32, view.vectors3d, metric)
-    ar = torch.arange(pad, device=queries.device)
-    valid = (ar < view.lens[rows][..., None]) & torch.isfinite(cent_d)[..., None]
-    inf = torch.full_like(d, float("inf"))
-    cand_ids = torch.where(valid, view.ids2d[rows], torch.full_like(view.ids2d[rows], -1))
-    d = torch.where(valid, d, inf)
+    thr = None
     if prune_factor is not None:
         # Reference-style query-aware pruning: keep points within
         # prune_factor * (nearest-centroid distance + eps).
         thr = float(np.float32(prune_factor)) * (cent_d[:, 0] + _F32_EPS)
-        d = torch.where(d <= thr[:, None, None], d, inf)
-    n_cand = nprobe * pad
-    d = d.reshape(Q, n_cand)
-    cand_ids = cand_ids.reshape(Q, n_cand)
+    per_probe = Q * (pad * _CAND_BYTES
+                     + (view.d_pad * 4 if view.vectors3d.dtype == torch.int8 else 0))
+    probe_chunk = max(1, PROBE_CHUNK_BYTES // max(1, per_probe))
+    if probe_chunk >= nprobe:
+        d, cand_ids = _probe_block(queries, view, rows, cent_d, metric, thr)
+        d, cand_ids = d.reshape(Q, nprobe * pad), cand_ids.reshape(Q, nprobe * pad)
+    else:
+        kk = max(k, min(k * view.max_dup, nprobe * pad))
+        d = torch.full((Q, kk), float("inf"), device=queries.device)
+        cand_ids = torch.full((Q, kk), -1, dtype=view.ids2d.dtype, device=queries.device)
+        for s in range(0, nprobe, probe_chunk):
+            cd, ci = _probe_block(queries, view, rows[:, s : s + probe_chunk],
+                                  cent_d[:, s : s + probe_chunk], metric, thr)
+            d, idx = smallest_k(torch.cat([d, cd.reshape(Q, -1)], dim=1), kk)
+            cand_ids = torch.gather(torch.cat([cand_ids, ci.reshape(Q, -1)], dim=1), 1, idx)
     vals, out_ids = smallest_k_unique(d, cand_ids, k, max_dup=view.max_dup)
     out_ids = torch.where(torch.isfinite(vals), out_ids, torch.full_like(out_ids, -1))
     return out_ids, vals

@@ -97,12 +97,23 @@ def build() -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.spf_rerank.argtypes = [
-        p, p, p, p, p,       # queries (or centered queries), rows, scales, vectors3d, out
-        i, i, i, i, i,       # Q, nprobe, Cpad, pad, d_pad
+        p, p, p,             # queries (or centered queries), scales, vectors3d
+        p, p, p,             # schedule: order, items, totals
+        p,                   # out
+        i, i, i, i, i,       # P = Q * nprobe, item slots, nprobe, pad, d_pad
         i, i,                # metric, slab dtype (0 f32, 1 bf16, 2 int8)
         p,                   # stream
     ]
     lib.spf_rerank.restype = i
+    lib.spf_rerank_geometry.argtypes = [i, i, ctypes.POINTER(i)]  # d_pad, slab dtype, out[5]
+    lib.spf_rerank_geometry.restype = i
+    lib.spf_rerank_schedule.argtypes = [
+        p, p, p, p,          # rows, order, items, totals
+        p, p,                # workspace: hist, offs (Cpad + 1 each)
+        i, i,                # P = Q * nprobe, Cpad
+        p,                   # stream
+    ]
+    lib.spf_rerank_schedule.restype = i
     lib.spf_rerank_int8mxu.argtypes = [
         p, p, p, p,          # qcodes, qscale, qnorm2, rows
         p, p, p, p,          # codesT3d, norms2, scales, out

@@ -11,6 +11,9 @@ calls a plain version.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from spfresh_tpu_torch.ops import _build
@@ -96,6 +99,67 @@ def _check(queries, rows, vectors3d, scales, centered_queries) -> None:
                          "must be on one device")
 
 
+def rerank_schedule(rows: torch.Tensor, cpad: int, group: int):
+    """The slab-major schedule of the rerank kernel over the P = Q * nprobe
+    (query, probe) pairs of ``rows`` (Q, nprobe) int32: a counting sort by
+    slab, each slab's pairs cut into work items of at most ``group``.
+
+    Returns ``(order, items, totals)``, int32 on ``rows``' device: ``order``
+    (P,) the flat pairs ``q * nprobe + j`` grouped by slab in slab order,
+    the pairs of an out-of-range slab index last; ``items`` (n_slots, 4)
+    ``{slab, first position in order, count, 0}`` of each work item in slab
+    order, then unused slots (n_slots bounds the item count);
+    ``totals`` = (items, in-range pairs, 0), the last the counter off which
+    the kernel's blocks take their items, so a schedule serves one launch.
+    A CUDA tensor launches the counting sort of ``csrc/rerank.cu``
+    (``group`` must be the kernel's), where a slab's pairs come in any
+    order; on the CPU they stay in pair order."""
+    flat = rows.reshape(-1)
+    P = flat.numel()
+    dev = rows.device
+    n_slots = min(P, -(-P // group) + min(P, cpad))  # bounds the item count
+    if dev.type == "cuda":
+        if rows.dtype != torch.int32 or not rows.is_contiguous():
+            raise ValueError("rows must be contiguous int32")
+        if group != kernel_geometry(16, torch.int8)["group"]:
+            raise ValueError(f"group={group} is not the kernel's work-item size")
+        order = torch.empty(P, dtype=torch.int32, device=dev)
+        items = torch.empty((n_slots, 4), dtype=torch.int32, device=dev)
+        totals = torch.empty(3, dtype=torch.int32, device=dev)
+        hist = torch.empty(cpad + 1, dtype=torch.int32, device=dev)
+        offs = torch.empty(cpad + 1, dtype=torch.int32, device=dev)
+        rc = _build.library().spf_rerank_schedule(
+            flat.data_ptr(), order.data_ptr(), items.data_ptr(), totals.data_ptr(),
+            hist.data_ptr(), offs.data_ptr(), P, cpad, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, "rerank schedule")
+        return order, items, totals
+    key = torch.where((flat < 0) | (flat >= cpad), cpad, flat).long()
+    order = torch.sort(key, stable=True).indices.to(torch.int32)
+    hist = torch.bincount(key, minlength=cpad + 1)[:cpad]
+    per = (hist + group - 1) // group  # items per slab
+    slab = torch.repeat_interleave(torch.arange(cpad, device=dev), per)
+    k = torch.arange(slab.numel(), device=dev) - (torch.cumsum(per, 0) - per)[slab]
+    items = torch.zeros((n_slots, 4), dtype=torch.int32, device=dev)
+    items[: slab.numel(), 0] = slab.to(torch.int32)
+    items[: slab.numel(), 1] = ((torch.cumsum(hist, 0) - hist)[slab] + k * group).to(torch.int32)
+    items[: slab.numel(), 2] = torch.clamp(hist[slab] - k * group, max=group).to(torch.int32)
+    totals = torch.tensor([slab.numel(), int(hist.sum()), 0], dtype=torch.int32, device=dev)
+    return order, items, totals
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_geometry(d_pad: int, slab_dtype: torch.dtype) -> dict:
+    """The kernel's work-item size and tile geometry for (d_pad, slab dtype),
+    as the built library computes them."""
+    out = (ctypes.c_int * 5)()
+    rc = _build.library().spf_rerank_geometry(d_pad, _SLAB_CODE[slab_dtype], out)
+    geo = dict(zip(("group", "lanes", "rows", "stages", "smem"), out))
+    if rc != 0:
+        raise ValueError(f"d_pad={d_pad} {slab_dtype}: the slab ring and the query rows need "
+                         f"{geo['smem']} bytes of shared memory, more than a block has")
+    return geo
+
+
 def padded_rerank_distances(queries: torch.Tensor, rows: torch.Tensor,
                             vectors3d: torch.Tensor, metric: str = EUCLIDEAN,
                             scales: torch.Tensor | None = None,
@@ -103,11 +167,15 @@ def padded_rerank_distances(queries: torch.Tensor, rows: torch.Tensor,
     """Distances (Q, nprobe, pad) f32 between each query (Q, d_pad) f32 and
     every row of each probed slab ``vectors3d[rows[q, j]]``.  Rows beyond
     the true nprobe must still be valid slab indices; callers mask them.
+    An out-of-range slab index gives a NaN row on the card.
 
     int8 slabs hold residual codes and take ``scales`` (Q, nprobe) f32, the
     scale of each probed slab, and ``centered_queries`` (Q, nprobe, d_pad)
     f32, ``q - c_j`` for each probe; the distance is then that of
-    ``scales * code - centered_queries``.  Both are given or neither is."""
+    ``scales * code - centered_queries``.  Both are given or neither is.
+
+    On the card the pairs are first grouped by slab (``rerank_schedule``),
+    so the kernel reads each probed slab once per group."""
     global launches, quantized_launches
     metric = canonical_metric(metric)
     _check(queries, rows, vectors3d, scales, centered_queries)
@@ -122,25 +190,30 @@ def padded_rerank_distances(queries: torch.Tensor, rows: torch.Tensor,
     vals_per_16b = 16 // vectors3d.element_size()
     if d_pad % vals_per_16b:
         raise ValueError(f"d_pad={d_pad} must be a multiple of {vals_per_16b} for 16-byte loads")
-    if d_pad * 4 > 48 * 1024:
-        raise ValueError(f"d_pad={d_pad}: the query row must fit 48 KB of shared memory")
     if Q * nprobe >= 2**31:
-        raise ValueError(f"Q*nprobe={Q * nprobe} exceeds the kernel's grid")
+        raise ValueError(f"Q*nprobe={Q * nprobe} exceeds the kernel's int32 pair index")
+    geo = kernel_geometry(d_pad, vectors3d.dtype)
     named = [("queries", queries), ("rows", rows), ("vectors3d", vectors3d)]
     if quantized:
         named += [("scales", scales), ("centered_queries", centered_queries)]
     for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if vectors3d.data_ptr() % 16:
-        raise ValueError("vectors3d must be 16-byte aligned")
+    for name, t in (("vectors3d", vectors3d),
+                    ("centered_queries" if quantized else "queries",
+                     centered_queries if quantized else queries)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty((Q, nprobe, pad), dtype=torch.float32, device=rows.device)
-    lib = _build.library()
-    rc = lib.spf_rerank(
-        (centered_queries if quantized else queries).data_ptr(), rows.data_ptr(),
-        scales.data_ptr() if quantized else None, vectors3d.data_ptr(), out.data_ptr(),
-        Q, nprobe, C, pad, d_pad, _METRIC_CODE[metric], _SLAB_CODE[vectors3d.dtype],
-        torch.cuda.current_stream(rows.device).cuda_stream,
+    if Q * nprobe == 0 or pad == 0:
+        return out
+    order, items, totals = rerank_schedule(rows, C, geo["group"])
+    rc = _build.library().spf_rerank(
+        (centered_queries if quantized else queries).data_ptr(),
+        scales.data_ptr() if quantized else None, vectors3d.data_ptr(), order.data_ptr(),
+        items.data_ptr(), totals.data_ptr(), out.data_ptr(),
+        Q * nprobe, items.shape[0], nprobe, pad, d_pad, _METRIC_CODE[metric],
+        _SLAB_CODE[vectors3d.dtype], torch.cuda.current_stream(rows.device).cuda_stream,
     )
     _build.check(rc, "rerank")
     if quantized:
