@@ -376,8 +376,9 @@ def rerank_edge_cases(torch) -> None:
     schedule and the tile ring have edges, within RERANK_RTOL: d_pad 16,
     112 and 1,024 for f32, bf16 and int8 slabs and every metric, at a pad
     that no row tile divides (37) and one that wraps the ring (1,100);
-    every pair on one slab (many work items for one slab); one pair; and
-    out-of-range rows, which must give NaN rows."""
+    d_pad 1,536, 2,048 and 4,096 (rows taken in column slices) at pads 37
+    and 300; every pair on one slab (many work items for one slab); one
+    pair; and out-of-range rows, which must give NaN rows."""
     from spfresh_tpu_torch.ops import rerank
 
     dev = torch.device(DEVICE)
@@ -401,10 +402,11 @@ def rerank_edge_cases(torch) -> None:
         return q, rows, slabs, kw
 
     worst, n = 0.0, 0
-    for d_pad in (16, 112, 1024):
+    for d_pad, pads in ((16, (37, 1100)), (112, (37, 1100)), (1024, (37, 1100)),
+                        (1536, (37, 300)), (2048, (37, 300)), (4096, (37, 300))):
         for sd in (torch.float32, torch.bfloat16, torch.int8):
             geo = rerank.kernel_geometry(d_pad, sd)
-            for pad in (37, 1100):
+            for pad in pads:
                 q, rows, slabs, kw = inputs(40, 5, 24, pad, d_pad, sd)
                 for metric in ("Euclidean", "Manhattan", "Chebyshev"):
                     rel, _ = rerank_compare(torch, q, rows, slabs, metric, **kw)
@@ -412,6 +414,13 @@ def rerank_edge_cases(torch) -> None:
                         f"rerank edge d_pad={d_pad} {sd} pad={pad} {metric}: rel err {rel}")
                     worst, n = max(worst, rel), n + 1
             log(f"kernel rerank edges: d_pad={d_pad} {sd} geometry {geo}")
+    # The widest single-slice geometry again, after narrower ones of the
+    # same kernels: its launch set-up is cached and must still hold.
+    for sd in (torch.float32, torch.bfloat16, torch.int8):
+        q, rows, slabs, kw = inputs(40, 5, 24, 37, 1024, sd)
+        rel, _ = rerank_compare(torch, q, rows, slabs, "Manhattan", **kw)
+        assert rel <= RERANK_RTOL, f"rerank edge d_pad=1024 {sd} again: rel err {rel}"
+        worst, n = max(worst, rel), n + 1
     for sd in (torch.bfloat16, torch.int8):
         hot = torch.full((512, 8), 3, dtype=torch.int32, device=dev)
         one = torch.full((1, 1), 5, dtype=torch.int32, device=dev)
@@ -1223,6 +1232,23 @@ def kernel_rerank_view(torch, view, queries, nprobe: int, metric: str, tag: str)
         f"max_abs_err={max_abs:.3e} (rtol {RERANK_RTOL}) kernel={ms:.4f} ms ({gbps:.0f} GB/s of "
         f"probed slabs) plain={plain_ms:.4f} ms bound={b['bound_ms']:.4f} ms ({b['bound_by']}); "
         f"{schedule_stats(torch, rows, cpad)}")
+    # Small batches (the live phase searches 8 queries after each insert
+    # batch; a 512 batch is the update pipeline's): the wrapper's time, the
+    # schedule's alone (a fixed cost of every call) and the bound.
+    group = rerank.kernel_geometry(d_pad, slabs.dtype)["group"]
+    small = []
+    for qs in (512, 8):
+        r = rows[:qs].contiguous()
+        sub = {key: val[:qs] for key, val in kw.items()}
+        s_ms = cuda_ms(torch, lambda: rerank.padded_rerank_distances(qpad[:qs], r, slabs, metric,
+                                                                     **sub), 20)
+        sched_ms = cuda_ms(torch, lambda: rerank.rerank_schedule(r, cpad, group), 20)
+        bs = bound(int(torch.unique(r).numel()) * pad * d_pad * slabs.element_size()
+                   + qs * d_pad * 4 + qs * nprobe * per_pair,
+                   (4 if kw else 3) * qs * nprobe * pad * d_pad, F32_FLOPS)
+        small.append(f"Q={qs}: kernel={s_ms:.4f} ms (schedule alone {sched_ms:.4f} ms) "
+                     f"bound={bs['bound_ms']:.4f} ms")
+    log(f"{tag}: kernel rerank on the phase's rows, small batches: " + "; ".join(small))
 
 
 def full_probe_check(torch, index, queries, nq: int = 8192, nsub: int = 64) -> None:
@@ -1237,17 +1263,28 @@ def full_probe_check(torch, index, queries, nq: int = 8192, nsub: int = 64) -> N
     C = index.num_clusters
     view = index.padded_view()
     qs = queries[:nq]
-    per_probe = nq * view.pad * spann._CAND_BYTES
-    chunk = max(1, spann.PROBE_CHUNK_BYTES // per_probe)
+    block = spann._probe_block
+    calls = []  # probes of each block the search builds
+
+    def counting(*a, **kw):
+        calls.append(a[2].shape[1])
+        return block(*a, **kw)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    ids, dists = index.search(qs, 10, nprobe=C)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    spann._probe_block = counting
+    try:
+        t0 = time.perf_counter()
+        ids, dists = index.search(qs, 10, nprobe=C)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        spann._probe_block = block
     peak = torch.cuda.max_memory_allocated()
-    assert chunk < C, f"{chunk} probes per chunk: the full probe is not chunked"
+    chunk = max(calls)
+    assert len(calls) > 1 and sum(calls) == C, (
+        f"blocks of {calls[:4]}... probes: the full probe of {C} is not chunked")
     assert np.isfinite(dists).all() and (ids >= 0).all(), "full probe left an empty slot"
     assert_no_duplicates(ids)
     threshold = spann.PROBE_CHUNK_BYTES
@@ -1261,8 +1298,10 @@ def full_probe_check(torch, index, queries, nq: int = 8192, nsub: int = 64) -> N
         spann.PROBE_CHUNK_BYTES = threshold
     differ = int((ids[:nsub] != want).sum())
     log(f"main: full probe (nprobe={C}) of {len(qs)} queries in one batch: {chunk} probes per "
-        f"chunk ({-(-C // chunk)} chunks), {wall:.2f} s, peak memory "
-        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the index; the "
+        f"chunk ({len(calls)} chunks), {wall:.2f} s, peak memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the index, "
+        f"{(peak - base) / (len(qs) * chunk * view.pad):.1f} bytes per candidate of a chunk "
+        f"against a budget of {spann._CAND_BYTES}; the "
         f"unchunked distances alone would be {len(qs) * C * view.pad * 4 / 2**30:.1f} GiB); "
         f"{differ} of {want.size} ids of {nsub} queries differ from an unchunked search "
         f"(peak {peak_one / 2**30:.2f} GiB)")

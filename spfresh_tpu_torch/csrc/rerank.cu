@@ -53,6 +53,14 @@
 //   row's lanes with shuffles.  A (pair, row) distance is summed in the
 //   same order whatever the grouping, so the result does not depend on
 //   the schedule.
+// - Wide rows.  When kGroup query rows (twice, for the prefetch) and a
+//   2-stage ring of whole rows do not fit a block's shared memory (past
+//   d_pad ~1,200 for f32 slabs, ~1,450 bf16, ~1,600 int8), the row is cut
+//   into `slices` column slices of `width` elements and an item runs once
+//   per slice: its query rows are staged a slice at a time, a tile is
+//   `rows` row slices (one bulk copy each), and slices after the first
+//   fold into the distances the same thread wrote for the slice before.
+//   So every d_pad runs, each probed slab still read once per item.
 // - int8 codes become f32 by the exact magic-number form (a byte
 //   permute into the mantissa of 2^23 and one subtraction), not by
 //   I2F, which issues at a quarter of the f32 rate.  The dequantizing
@@ -67,16 +75,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef SPF_RERANK_GROUP
-#define SPF_RERANK_GROUP 16
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kGroup = SPF_RERANK_GROUP;  // most (query, probe) pairs per work item
-constexpr int kMaxStages = 3;             // depth of the shared-memory ring
-constexpr int kMaxSmem = 232448;          // a block's dynamic shared memory on sm_90
+constexpr int kGroup = 16;        // most (query, probe) pairs per work item
+constexpr int kMaxStages = 3;     // depth of the shared-memory ring
+// A block's dynamic shared memory on sm_90: the 227 KB opt-in less 1 KB
+// for the kernel's static barriers and item metadata.
+constexpr int kMaxSmem = 232448 - 1024;
 static_assert(kGroup >= 1 && kGroup < 32, "an item's pairs run in passes of 16, 8, 4, 2, 1");
 
 enum Metric { kEuclidean = 0, kManhattan = 1, kChebyshev = 2 };
@@ -137,33 +143,50 @@ struct I8 {
   }
 };
 
-// Tile geometry for a slab row of d_pad elements of `esize` bytes.  A tile
-// is the rows = kThreads / lanes rows the block covers at once, `lanes`
-// threads to a row: the fewest lanes whose tile fits 16 KB, or 16 rows
-// when rows are longer than 1 KB.  The rows of one warp read the same
-// query values (32 / lanes rows share each shared-memory read), so at
-// least 2 rows share them even at d_pad 1,024.  Shared memory holds the
-// ring of `stages` tiles (up to kMaxStages) and kGroup f32 query rows.
+// Tile geometry for slab rows of d_pad elements of `esize` bytes, taken in
+// `slices` column slices of `width` elements (the last may be narrower; one
+// slice, of the whole row, whenever that fits).  A tile is the rows =
+// kThreads / lanes row slices the block covers at once, `lanes` threads to
+// a row: the fewest lanes whose tile fits 16 KB, or 16 rows when a row
+// slice is longer than 1 KB.  The rows of one warp read the same query
+// values (32 / lanes rows share each shared-memory read), so at least 2
+// rows share them even at d_pad 1,024.  Shared memory holds the ring of
+// `stages` tiles (2 to kMaxStages) and two buffers of kGroup f32 query
+// row slices.
 struct Geometry {
-  int lanes, rows, row_bytes, tile_bytes, qbytes, stages, smem;
+  int width, slices, lanes, rows, row_bytes, srow_bytes, tile_bytes, qbytes, stages, smem;
 };
 
-__host__ __device__ inline Geometry geometry(int d_pad, int esize) {
+inline Geometry slice_geometry(int d_pad, int esize, int width) {
   Geometry g;
+  g.width = width;
+  g.slices = (d_pad + width - 1) / width;
   g.row_bytes = d_pad * esize;
-  g.qbytes = kGroup * d_pad * (int)sizeof(float);  // one item's query rows
-  const int tile_max = 16 * g.row_bytes > 16384 ? 16 * g.row_bytes : 16384;
+  g.srow_bytes = width * esize;
+  g.qbytes = kGroup * width * (int)sizeof(float);  // one item's query row slices
+  const int tile_max = 16 * g.srow_bytes > 16384 ? 16 * g.srow_bytes : 16384;
   g.lanes = 1;
-  while (g.lanes < 16 && (kThreads / g.lanes) * g.row_bytes > tile_max) g.lanes *= 2;
+  while (g.lanes < 16 && (kThreads / g.lanes) * g.srow_bytes > tile_max) g.lanes *= 2;
   for (;;) {  // two query buffers and at least two stages, or more lanes to a row
     g.rows = kThreads / g.lanes;
-    g.tile_bytes = g.rows * g.row_bytes;
+    g.tile_bytes = g.rows * g.srow_bytes;
     g.stages = (kMaxSmem - 2 * g.qbytes) / g.tile_bytes;
     if (g.stages >= 2 || g.lanes == 32) break;
     g.lanes *= 2;
   }
   if (g.stages > kMaxStages) g.stages = kMaxStages;
   g.smem = g.stages * g.tile_bytes + 2 * g.qbytes;
+  return g;
+}
+
+// The fewest slices that fit, each a whole number of 16-byte chunks.
+inline Geometry geometry(int d_pad, int esize) {
+  const int vals = 16 / esize;
+  Geometry g = slice_geometry(d_pad, esize, d_pad);
+  for (int s = 2; g.stages < 2 && s <= d_pad / vals; ++s) {
+    const int per = (d_pad + s - 1) / s;
+    g = slice_geometry(d_pad, esize, (per + vals - 1) / vals * vals);
+  }
   return g;
 }
 
@@ -326,19 +349,20 @@ __global__ void schedule_scatter_kernel(const int* __restrict__ rows, const int*
 // The distances.
 // ---------------------------------------------------------------------------
 
-// One pass of NG pairs (g0 .. g0 + NG - 1 of the item) over one tile row:
-// each lane walks its 16-byte chunks of the row, converts each to f32 once
-// and accumulates it against the NG query chunks, read from shared memory
-// in planes (float4 e of chunk c at e * chunks + c), so the lanes of a row
-// read consecutive 16 bytes.  Then the row's lanes reduce with shuffles and
-// lane (g & (lanes - 1)) writes pair g's distance.
+// One pass of NG pairs (g0 .. g0 + NG - 1 of the item) over one tile row
+// (slice): each lane walks its 16-byte chunks of the row, converts each to
+// f32 once and accumulates it against the NG query chunks, read from
+// shared memory in planes (float4 e of chunk c at e * chunks + c of the
+// pair's qstride float4s), so the lanes of a row read consecutive 16
+// bytes.  Then the row's lanes reduce with shuffles and lane (g & (lanes -
+// 1)) writes pair g's distance, or folds it into the earlier slices' when
+// `fold`.
 template <typename S, int M, int NG>
 __device__ __forceinline__ void pair_pass(const uint4* row_chunks, const float4* qs4,
                                           const float* scale_s, const int* pair_s, int g0,
-                                          int lane, int lanes, int chunks, bool live, int row,
-                                          int pad, float* __restrict__ out) {
+                                          int lane, int lanes, int chunks, int qstride, bool fold,
+                                          bool live, int row, int pad, float* __restrict__ out) {
   constexpr int V = S::kVals, E = V / 4;
-  const int qstride = E * chunks;  // float4s in a query row
   float acc[NG];
 #pragma unroll
   for (int g = 0; g < NG; ++g) acc[g] = 0.f;
@@ -373,30 +397,41 @@ __device__ __forceinline__ void pair_pass(const uint4* row_chunks, const float4*
   if (live) {
 #pragma unroll
     for (int g = 0; g < NG; ++g)
-      if (((g0 + g) & (lanes - 1)) == lane) out[(size_t)pair_s[g0 + g] * pad + row] = acc[g];
+      if (((g0 + g) & (lanes - 1)) == lane) {
+        float* o = out + (size_t)pair_s[g0 + g] * pad + row;
+        *o = fold ? combine<M>(*o, acc[g]) : acc[g];
+      }
   }
 }
 
-// One item's metadata, written by the producer warp before it releases the
-// item's query buffer to the consumers.
+// One unit's metadata (an item's slice), written by the producer warp
+// before it releases the unit's query buffer to the consumers.
 struct ItemMeta {
-  int cnt;  // < 0: no more items
+  int cnt;     // < 0: no more items
+  int slice;   // the column slice
+  int chunks;  // 16-byte chunks in a row of the slice
   int pair[kGroup];
   float scale[kGroup];
 };
 
+static_assert(2 * sizeof(ItemMeta) + (2 * kMaxStages + 4) * sizeof(uint64_t) <= 1024,
+              "the kernel's static shared memory fits the 1 KB kMaxSmem leaves");
+
 constexpr int kConsumers = kThreads / 32;  // consumer warps
 constexpr int kBlock = kThreads + 32;      // and one producer warp
 
-// A persistent block: warp 0 produces, warps 1..kConsumers consume.
-//   producer: takes the next work item from the counter totals[2], waits
-//     for the item's query buffer (two, alternating) to be released,
-//     writes the item's pairs and scales and copies its query rows (in
-//     planes) into the buffer, releases it (qfull), then feeds the item's
-//     slab tiles into the ring, each stage as soon as the consumers have
-//     released it (empty).  So the next item's query rows and first tiles
-//     are in flight while the consumers finish the current one.
-//   consumers: per item, wait for its buffer, run each tile as it lands
+// A persistent block: warp 0 produces, warps 1..kConsumers consume.  A
+// unit is one column slice of a work item (the whole item when the
+// geometry has one slice); a block runs all slices of the items it takes.
+//   producer: per unit, waits for the unit's query buffer (two,
+//     alternating) to be released; at an item's first slice takes the
+//     next item from the counter totals[2]; writes the pairs and scales
+//     and copies the query row slices (in planes) into the buffer,
+//     releases it (qfull), then feeds the slab's row slices into the
+//     ring, each stage as soon as the consumers have released it
+//     (empty).  So the next unit's query rows and first tiles are in
+//     flight while the consumers finish the current one.
+//   consumers: per unit, wait for its buffer, run each tile as it lands
 //     (full), release the stage, and release the buffer at the end.
 // order (P,): the pairs (q * nprobe + j) sorted by slab, the totals[1]
 // in-range ones first; items: {slab, first position, count} of each work
@@ -407,17 +442,16 @@ __global__ void __launch_bounds__(kBlock)
 rerank_kernel(const float* __restrict__ queries, const float* __restrict__ scales,
               const unsigned char* __restrict__ slabs, const int* __restrict__ order,
               const int4* __restrict__ items, int* __restrict__ totals,
-              float* __restrict__ out, int P, int nprobe, int pad, int d_pad) {
+              float* __restrict__ out, const Geometry geo, int P, int nprobe, int pad,
+              int d_pad) {
   constexpr int V = S::kVals, E = V / 4;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages], qfull[2], qempty[2];
   __shared__ ItemMeta meta[2];
 
-  const Geometry geo = geometry(d_pad, 16 / V);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int ntiles = (pad + geo.rows - 1) / geo.rows;
-  const int vec = d_pad / 4;                  // float4s in a query row
-  const int chunks = geo.row_bytes / 16;      // 16-byte chunks in a slab row
+  const int qstride = geo.width / 4;  // float4s of a pair's query slice in a buffer
   float4* qbuf = reinterpret_cast<float4*>(smem + geo.stages * geo.tile_bytes);
   if (threadIdx.x == 0) {
     for (int s = 0; s < geo.stages; ++s) {
@@ -434,59 +468,81 @@ rerank_kernel(const float* __restrict__ queries, const float* __restrict__ scale
 
   if (warp == 0) {  // producer
     const int n_items = totals[0];
-    int seq = 0;  // tiles issued, over all items
+    int seq = 0;  // tiles issued, over all units
+    int slice = geo.slices, cnt = 0, pair = 0;
+    float scale = 0.f;
+    int4 item = make_int4(0, 0, 0, 0);  // {slab, first position, count}
     for (int k = 0;; ++k) {
       const int b = k & 1;
       mbar_wait(smem_u32(qempty + b), (uint32_t)(((k >> 1) & 1) ^ 1));  // the first round passes
-      int it = 0;
-      if (lane == 0) it = atomicAdd(totals + 2, 1);
-      it = __shfl_sync(0xffffffffu, it, 0);
       ItemMeta& m = meta[b];
-      if (it >= n_items) {
-        if (lane == 0) {
-          m.cnt = -1;
-          mbar_arrive(smem_u32(qfull + b));
+      if (slice == geo.slices) {  // the next item
+        int it = 0;
+        if (lane == 0) it = atomicAdd(totals + 2, 1);
+        it = __shfl_sync(0xffffffffu, it, 0);
+        if (it >= n_items) {
+          if (lane == 0) {
+            m.cnt = -1;
+            mbar_arrive(smem_u32(qfull + b));
+          }
+          return;
         }
-        return;
+        item = items[it];
+        cnt = item.z;
+        slice = 0;
+        if (lane < cnt) {
+          pair = order[item.y + lane];
+          if (S::kQuantized) scale = scales[pair];
+        }
       }
-      const int4 item = items[it];  // {slab, first position, count}
-      const int cnt = item.z;
+      const int col0 = slice * geo.width;  // the slice's first element
+      const int wid = min(geo.width, d_pad - col0);
+      const int chunks = wid / V;
       if (lane < cnt) {
-        const int pair = order[item.y + lane];
         m.pair[lane] = pair;
-        if (S::kQuantized) m.scale[lane] = scales[pair];
+        if (S::kQuantized) m.scale[lane] = scale;
       }
-      if (lane == 0) m.cnt = cnt;
+      if (lane == 0) m.cnt = cnt, m.slice = slice, m.chunks = chunks;
       __syncwarp();
-      // Query rows (the float path: query q of pair q * nprobe + j; int8:
-      // the pair's own centered row) in planes: float4 f of a row (chunk
-      // f / E, plane f % E) goes to (f % E) * chunks + f / E.
-      float4* q = qbuf + b * (kGroup * vec);
+      // Query row slices (the float path: query q of pair q * nprobe + j;
+      // int8: the pair's own centered row) in planes: float4 f of a slice
+      // (chunk f / E, plane f % E) goes to (f % E) * chunks + f / E.
+      float4* q = qbuf + b * (kGroup * qstride);
+      const int vec = wid / 4;
 #pragma unroll 4
       for (int i = lane; i < cnt * vec; i += 32) {
         const int g = i / vec;
         const int f = i - g * vec;
-        const int pair = m.pair[g];
+        const int p = m.pair[g];
         const float4* row = reinterpret_cast<const float4*>(
-            queries + (size_t)(S::kQuantized ? pair : pair / nprobe) * d_pad);
-        q[g * vec + (f % E) * chunks + f / E] = __ldg(row + f);
+            queries + (size_t)(S::kQuantized ? p : p / nprobe) * d_pad + col0);
+        q[g * qstride + (f % E) * chunks + f / E] = __ldg(row + f);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(smem_u32(qfull + b));  // releases the stores above
       if (lane == 0) {
         const unsigned char* slab = slabs + (size_t)item.x * pad * geo.row_bytes;
+        const int sbytes = wid * (16 / V);  // bytes of a row slice
         for (int t = 0; t < ntiles; ++t, ++seq) {
           const int stage = seq % geo.stages;
           mbar_wait(smem_u32(empty + stage), (uint32_t)(((seq / geo.stages) & 1) ^ 1));
           const int rows = min(geo.rows, pad - t * geo.rows);
-          const uint32_t bytes = (uint32_t)(rows * geo.row_bytes);
           const uint32_t bar = smem_u32(full + stage);
-          mbar_expect_tx(bar, bytes);
-          bulk_load(smem_u32(smem + stage * geo.tile_bytes), slab + (size_t)t * geo.tile_bytes,
-                    bytes, bar);
+          const uint32_t dst = smem_u32(smem + stage * geo.tile_bytes);
+          mbar_expect_tx(bar, (uint32_t)(rows * sbytes));
+          if (geo.slices == 1) {  // whole rows: the tile is contiguous
+            bulk_load(dst, slab + (size_t)t * geo.tile_bytes, (uint32_t)(rows * sbytes), bar);
+          } else {
+            const unsigned char* src =
+                slab + (size_t)t * geo.rows * geo.row_bytes + col0 * (16 / V);
+            for (int r = 0; r < rows; ++r)
+              bulk_load(dst + r * geo.srow_bytes, src + (size_t)r * geo.row_bytes,
+                        (uint32_t)sbytes, bar);
+          }
         }
       }
       seq = __shfl_sync(0xffffffffu, seq, 0);
+      ++slice;
     }
   }
 
@@ -502,35 +558,42 @@ rerank_kernel(const float* __restrict__ queries, const float* __restrict__ scale
     const ItemMeta& m = meta[b];
     const int cnt = m.cnt;
     if (cnt < 0) break;
-    const float4* qs4 = qbuf + b * (kGroup * vec);
+    const int chunks = m.chunks;
+    const bool fold = m.slice > 0;
+    const float4* qs4 = qbuf + b * (kGroup * qstride);
     for (int t = 0; t < ntiles; ++t, ++seq) {
       const int stage = seq % geo.stages;
       mbar_wait(smem_u32(full + stage), (uint32_t)((seq / geo.stages) & 1));
       const int row = t * geo.rows + slot;
       const uint4* r = reinterpret_cast<const uint4*>(smem + stage * geo.tile_bytes +
-                                                      slot * geo.row_bytes);
+                                                      slot * geo.srow_bytes);
       const bool live = row < pad;
       // The item's pairs in passes of 16, 8, 4, 2 and 1 (the bits of cnt):
       // each pass is unrolled over a fixed number of accumulators.
       int g0 = 0;
       if (cnt & 16) {
-        pair_pass<S, M, 16>(r, qs4, m.scale, m.pair, g0, rl, lanes, chunks, live, row, pad, out);
+        pair_pass<S, M, 16>(r, qs4, m.scale, m.pair, g0, rl, lanes, chunks, qstride, fold, live,
+                            row, pad, out);
         g0 += 16;
       }
       if (cnt & 8) {
-        pair_pass<S, M, 8>(r, qs4, m.scale, m.pair, g0, rl, lanes, chunks, live, row, pad, out);
+        pair_pass<S, M, 8>(r, qs4, m.scale, m.pair, g0, rl, lanes, chunks, qstride, fold, live,
+                           row, pad, out);
         g0 += 8;
       }
       if (cnt & 4) {
-        pair_pass<S, M, 4>(r, qs4, m.scale, m.pair, g0, rl, lanes, chunks, live, row, pad, out);
+        pair_pass<S, M, 4>(r, qs4, m.scale, m.pair, g0, rl, lanes, chunks, qstride, fold, live,
+                           row, pad, out);
         g0 += 4;
       }
       if (cnt & 2) {
-        pair_pass<S, M, 2>(r, qs4, m.scale, m.pair, g0, rl, lanes, chunks, live, row, pad, out);
+        pair_pass<S, M, 2>(r, qs4, m.scale, m.pair, g0, rl, lanes, chunks, qstride, fold, live,
+                           row, pad, out);
         g0 += 2;
       }
       if (cnt & 1)
-        pair_pass<S, M, 1>(r, qs4, m.scale, m.pair, g0, rl, lanes, chunks, live, row, pad, out);
+        pair_pass<S, M, 1>(r, qs4, m.scale, m.pair, g0, rl, lanes, chunks, qstride, fold, live,
+                           row, pad, out);
       __syncwarp();
       if (lane == 0) mbar_arrive(smem_u32(empty + stage));  // this warp is done with the stage
     }
@@ -544,47 +607,31 @@ rerank_kernel(const float* __restrict__ queries, const float* __restrict__ scale
   }
 }
 
-// One persistent block per free slot of the card (occupancy x SMs), at
-// most one per work-item slot.
-template <typename S, int M>
-cudaError_t launch(const float* queries, const float* scales, const unsigned char* slabs,
-                   const int* order, const int4* items, int* totals, float* out, int P,
-                   int n_slots, int nprobe, int pad, int d_pad, cudaStream_t stream) {
-  const Geometry geo = geometry(d_pad, 16 / S::kVals);
-  cudaError_t e = cudaFuncSetAttribute(rerank_kernel<S, M>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rerank_kernel<S, M>, kBlock,
-                                                         geo.smem)) != cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int grid = sms * per_sm < n_slots ? sms * per_sm : n_slots;
-  rerank_kernel<S, M><<<grid, kBlock, geo.smem, stream>>>(
-      queries, scales, slabs, order, items, totals, out, P, nprobe, pad, d_pad);
-  return cudaGetLastError();
-}
-
+// The kernel of (slab type, metric).
 template <typename S>
-cudaError_t launch_metric(int metric, const float* queries, const float* scales,
-                          const unsigned char* slabs, const int* order, const int4* items,
-                          int* totals, float* out, int P, int n_slots, int nprobe, int pad,
-                          int d_pad, cudaStream_t stream) {
+const void* kernel_for(int metric) {
   switch (metric) {
     case kEuclidean:
-      return launch<S, kEuclidean>(queries, scales, slabs, order, items, totals, out, P, n_slots,
-                                   nprobe, pad, d_pad, stream);
+      return reinterpret_cast<const void*>(rerank_kernel<S, kEuclidean>);
     case kManhattan:
-      return launch<S, kManhattan>(queries, scales, slabs, order, items, totals, out, P, n_slots,
-                                   nprobe, pad, d_pad, stream);
+      return reinterpret_cast<const void*>(rerank_kernel<S, kManhattan>);
     case kChebyshev:
-      return launch<S, kChebyshev>(queries, scales, slabs, order, items, totals, out, P, n_slots,
-                                   nprobe, pad, d_pad, stream);
+      return reinterpret_cast<const void*>(rerank_kernel<S, kChebyshev>);
     default:
-      return cudaErrorInvalidValue;
+      return nullptr;
+  }
+}
+
+const void* kernel_for(int slab_dtype, int metric) {
+  switch (slab_dtype) {
+    case 0:
+      return kernel_for<F32>(metric);
+    case 1:
+      return kernel_for<BF16>(metric);
+    case 2:
+      return kernel_for<I8>(metric);
+    default:
+      return nullptr;
   }
 }
 
@@ -596,8 +643,8 @@ int element_size(int slab_dtype) {
 
 // The work-item size and the tile geometry for slabs of d_pad elements of
 // slab_dtype (0 float32, 1 bfloat16, 2 int8): out = {group, lanes, rows
-// per tile, stages, dynamic shared memory bytes}.  Returns
-// cudaErrorInvalidValue if the geometry does not fit a block.
+// per tile, stages, dynamic shared memory bytes, slice width, slices}.
+// Returns cudaErrorInvalidValue if the geometry does not fit a block.
 extern "C" int spf_rerank_geometry(int d_pad, int slab_dtype, int* out) {
   const int esize = element_size(slab_dtype);
   if (esize == 0 || d_pad <= 0 || (d_pad * esize) % 16) return (int)cudaErrorInvalidValue;
@@ -607,7 +654,36 @@ extern "C" int spf_rerank_geometry(int d_pad, int slab_dtype, int* out) {
   out[2] = g.rows;
   out[3] = g.stages;
   out[4] = g.smem;
+  out[5] = g.width;
+  out[6] = g.slices;
   return g.stages >= 2 && g.smem <= kMaxSmem ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Readies the kernel of (d_pad, slab_dtype, metric) on the current device:
+// lets it take a block's whole dynamic shared memory (the attribute is the
+// function's, shared by every d_pad, so it is never lowered) and writes to
+// *blocks the persistent blocks the card holds at once at this d_pad's
+// geometry (occupancy x SMs).  Callers keep the result per device, so a
+// launch does none of this.
+extern "C" int spf_rerank_prepare(int d_pad, int slab_dtype, int metric, int* blocks) {
+  const int esize = element_size(slab_dtype);
+  const void* fn = kernel_for(slab_dtype, metric);
+  if (esize == 0 || fn == nullptr || d_pad <= 0 || (d_pad * esize) % 16)
+    return (int)cudaErrorInvalidValue;
+  const Geometry g = geometry(d_pad, esize);
+  cudaError_t e =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kBlock, g.smem)) !=
+      cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *blocks = sms * per_sm;
+  return 0;
 }
 
 // The schedule of the P pairs of ``rows`` (int32, flat q * nprobe + j) over
@@ -636,34 +712,24 @@ extern "C" int spf_rerank_schedule(const void* rows, void* order, void* items, v
 // centered block and ``scales`` the (Q, nprobe) scale table; else scales
 // is unused).  order, items and totals are the schedule of the P = Q *
 // nprobe pairs (spf_rerank_schedule), used once: the kernel counts its
-// items off totals[2].  n_slots is the length of items.  The wrapper
+// items off totals[2].  n_slots is the length of items; blocks is what
+// spf_rerank_prepare gave for this kernel on this device.  The wrapper
 // checks shapes, alignment, contiguity and the geometry.
 extern "C" int spf_rerank(const void* queries, const void* scales, const void* vectors3d,
                           const void* order, const void* items, void* totals, void* out,
-                          int P, int n_slots, int nprobe, int pad, int d_pad, int metric,
-                          int slab_dtype, void* stream) {
+                          int P, int n_slots, int blocks, int nprobe, int pad, int d_pad,
+                          int metric, int slab_dtype, void* stream) {
   if (P <= 0 || pad <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(queries);
-  const float* sc = static_cast<const float*>(scales);
-  const unsigned char* v = static_cast<const unsigned char*>(vectors3d);
-  const int* o = static_cast<const int*>(order);
-  const int4* it = static_cast<const int4*>(items);
-  int* tt = static_cast<int*>(totals);
-  float* d = static_cast<float*>(out);
-  switch (slab_dtype) {
-    case 0:
-      return (int)launch_metric<F32>(metric, qf, sc, v, o, it, tt, d, P, n_slots, nprobe, pad,
-                                     d_pad, s);
-    case 1:
-      return (int)launch_metric<BF16>(metric, qf, sc, v, o, it, tt, d, P, n_slots, nprobe, pad,
-                                      d_pad, s);
-    case 2:
-      return (int)launch_metric<I8>(metric, qf, sc, v, o, it, tt, d, P, n_slots, nprobe, pad,
-                                    d_pad, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const int esize = element_size(slab_dtype);
+  const void* fn = kernel_for(slab_dtype, metric);
+  if (esize == 0 || fn == nullptr || blocks < 1) return (int)cudaErrorInvalidValue;
+  Geometry geo = geometry(d_pad, esize);
+  int grid = blocks < n_slots ? blocks : n_slots;
+  void* args[] = {&queries, &scales, &vectors3d, &order, &items, &totals, &out,
+                  &geo, &P, &nprobe, &pad, &d_pad};
+  cudaError_t e = cudaLaunchKernel(fn, dim3(grid), dim3(kBlock), args, (size_t)geo.smem,
+                                   static_cast<cudaStream_t>(stream));
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 extern "C" const char* spf_error_string(int err) {

@@ -66,7 +66,10 @@ _PACK_CHUNK = 1 << 18  # member rows per slab-pack step (bounds the gather)
 # axis is taken in chunks (``_search_padded``), as in the reference (~1 GB).
 PROBE_CHUNK_BYTES = 1 << 30
 # Bytes a candidate holds in the block: its f32 distance, int32 id and the
-# int64 key of the tie-stable selection.
+# int64 key of the tie-stable selection.  The budget counts only these; the
+# peak runs higher, with the masks of ``_probe_block`` and the fold's copies
+# and key intermediates alive at once (``chip_smoke.py`` logs the peak of
+# the full-probe search per candidate of a chunk).
 _CAND_BYTES = 16
 
 
@@ -115,12 +118,11 @@ def _probe_block(queries, view: "PaddedView", rows, cent_d, metric: str, thr):
     else:
         d = padded_rerank_distances(queries, rows32, view.vectors3d, metric)
     ar = torch.arange(view.pad, device=queries.device)
-    valid = (ar < view.lens[rows][..., None]) & torch.isfinite(cent_d)[..., None]
-    inf = torch.full_like(d, float("inf"))
-    cand_ids = torch.where(valid, view.ids2d[rows], torch.full_like(view.ids2d[rows], -1))
-    d = torch.where(valid, d, inf)
+    invalid = (ar >= view.lens[rows][..., None]) | ~torch.isfinite(cent_d)[..., None]
+    cand_ids = view.ids2d[rows].masked_fill_(invalid, -1)
+    d.masked_fill_(invalid, float("inf"))
     if thr is not None:
-        d = torch.where(d <= thr[:, None, None], d, inf)
+        d.masked_fill_(~(d <= thr[:, None, None]), float("inf"))
     return d, cand_ids
 
 

@@ -100,13 +100,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p,             # queries (or centered queries), scales, vectors3d
         p, p, p,             # schedule: order, items, totals
         p,                   # out
-        i, i, i, i, i,       # P = Q * nprobe, item slots, nprobe, pad, d_pad
+        i, i, i,             # P = Q * nprobe, item slots, resident blocks
+        i, i, i,             # nprobe, pad, d_pad
         i, i,                # metric, slab dtype (0 f32, 1 bf16, 2 int8)
         p,                   # stream
     ]
     lib.spf_rerank.restype = i
-    lib.spf_rerank_geometry.argtypes = [i, i, ctypes.POINTER(i)]  # d_pad, slab dtype, out[5]
+    lib.spf_rerank_geometry.argtypes = [i, i, ctypes.POINTER(i)]  # d_pad, slab dtype, out[7]
     lib.spf_rerank_geometry.restype = i
+    # d_pad, slab dtype, metric, out: resident blocks
+    lib.spf_rerank_prepare.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.spf_rerank_prepare.restype = i
     lib.spf_rerank_schedule.argtypes = [
         p, p, p, p,          # rows, order, items, totals
         p, p,                # workspace: hist, offs (Cpad + 1 each)

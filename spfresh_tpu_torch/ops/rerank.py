@@ -123,11 +123,14 @@ def rerank_schedule(rows: torch.Tensor, cpad: int, group: int):
             raise ValueError("rows must be contiguous int32")
         if group != kernel_geometry(16, torch.int8)["group"]:
             raise ValueError(f"group={group} is not the kernel's work-item size")
-        order = torch.empty(P, dtype=torch.int32, device=dev)
-        items = torch.empty((n_slots, 4), dtype=torch.int32, device=dev)
-        totals = torch.empty(3, dtype=torch.int32, device=dev)
-        hist = torch.empty(cpad + 1, dtype=torch.int32, device=dev)
-        offs = torch.empty(cpad + 1, dtype=torch.int32, device=dev)
+        # One workspace: items (16-byte aligned at its start), totals (and a
+        # word of padding), order, and the counting sort's hist and offs.
+        ws = torch.empty(4 * n_slots + 4 + P + 2 * (cpad + 1), dtype=torch.int32, device=dev)
+        items = ws[: 4 * n_slots].view(n_slots, 4)
+        totals = ws[4 * n_slots : 4 * n_slots + 3]
+        order = ws[4 * n_slots + 4 : 4 * n_slots + 4 + P]
+        hist = ws[4 * n_slots + 4 + P : 4 * n_slots + 5 + P + cpad]
+        offs = ws[4 * n_slots + 5 + P + cpad :]
         rc = _build.library().spf_rerank_schedule(
             flat.data_ptr(), order.data_ptr(), items.data_ptr(), totals.data_ptr(),
             hist.data_ptr(), offs.data_ptr(), P, cpad, torch.cuda.current_stream(dev).cuda_stream)
@@ -150,14 +153,27 @@ def rerank_schedule(rows: torch.Tensor, cpad: int, group: int):
 @functools.lru_cache(maxsize=None)
 def kernel_geometry(d_pad: int, slab_dtype: torch.dtype) -> dict:
     """The kernel's work-item size and tile geometry for (d_pad, slab dtype),
-    as the built library computes them."""
-    out = (ctypes.c_int * 5)()
+    as the built library computes them: rows wider than fit shared memory
+    are taken in ``slices`` column slices of ``width`` elements."""
+    out = (ctypes.c_int * 7)()
     rc = _build.library().spf_rerank_geometry(d_pad, _SLAB_CODE[slab_dtype], out)
-    geo = dict(zip(("group", "lanes", "rows", "stages", "smem"), out))
+    geo = dict(zip(("group", "lanes", "rows", "stages", "smem", "width", "slices"), out))
     if rc != 0:
         raise ValueError(f"d_pad={d_pad} {slab_dtype}: the slab ring and the query rows need "
                          f"{geo['smem']} bytes of shared memory, more than a block has")
     return geo
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device: int, d_pad: int, slab_code: int, metric_code: int) -> int:
+    """Readies the kernel on ``device`` (its shared-memory size) and returns
+    how many of its persistent blocks the card holds at once."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.library().spf_rerank_prepare(d_pad, slab_code, metric_code,
+                                                 ctypes.byref(out))
+    _build.check(rc, "rerank prepare")
+    return out.value
 
 
 def padded_rerank_distances(queries: torch.Tensor, rows: torch.Tensor,
@@ -207,12 +223,15 @@ def padded_rerank_distances(queries: torch.Tensor, rows: torch.Tensor,
     out = torch.empty((Q, nprobe, pad), dtype=torch.float32, device=rows.device)
     if Q * nprobe == 0 or pad == 0:
         return out
+    blocks = _resident_blocks(rows.device.index if rows.device.index is not None
+                              else torch.cuda.current_device(), d_pad,
+                              _SLAB_CODE[vectors3d.dtype], _METRIC_CODE[metric])
     order, items, totals = rerank_schedule(rows, C, geo["group"])
     rc = _build.library().spf_rerank(
         (centered_queries if quantized else queries).data_ptr(),
         scales.data_ptr() if quantized else None, vectors3d.data_ptr(), order.data_ptr(),
         items.data_ptr(), totals.data_ptr(), out.data_ptr(),
-        Q * nprobe, items.shape[0], nprobe, pad, d_pad, _METRIC_CODE[metric],
+        Q * nprobe, items.shape[0], blocks, nprobe, pad, d_pad, _METRIC_CODE[metric],
         _SLAB_CODE[vectors3d.dtype], torch.cuda.current_stream(rows.device).cuda_stream,
     )
     _build.check(rc, "rerank")
