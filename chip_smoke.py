@@ -19,7 +19,13 @@ Phases, each printing a line:
               f32, bf16 and int8, every metric, a pad no tile divides and
               one that wraps the ring, one slab under 4,096 pairs, one
               pair, out-of-range rows giving NaN rows), and its slab-major
-              schedule on the card against its CPU form.
+              schedule on the card against its CPU form; the expansion-form
+              int8 scorer (rerank_int8mxu) at benchmarks/rerank_bench.py's
+              shape, bit-equal to its plain version, with its schedule
+              timed alone, and at its edges (d 16 to 4,096 at pads 4 to
+              2,052, one to three column passes; one slab under 4,096
+              pairs, one pair, slabs of equal rows, out-of-range rows
+              giving NaN rows; unaligned code tables raise).
 4. main     — the bench corpus (1M x 128 Gaussian mixture, seed 12345), a
               KMeans++ bf16 build through SpannIndexBuilder on "cuda",
               padded_view(), exact ground truth on the card, and an nprobe
@@ -324,6 +330,7 @@ def phase_kernels(torch, report):
     kernel_rerank_int8(torch, report)
     kernel_pairwise(torch, report)
     kernel_int8mxu(torch, report)
+    int8mxu_edge_cases(torch)
 
 
 def schedule_stats(torch, rows, cpad: int) -> str:
@@ -362,7 +369,7 @@ def rerank_compare(torch, queries, rows, slabs, metric: str, **kw) -> tuple:
     want = rerank.padded_rerank_distances_plain(queries, torch.where(bad, 0, rows), slabs,
                                                 metric, **kw)
     torch.cuda.synchronize()
-    assert bool(torch.isnan(got[bad]).all()), "an out-of-range row did not give NaN"
+    assert bool(torch.isnan(got[bad]).all()), f"{tag}: an out-of-range row did not give NaN"
     got, want = got[~bad], want[~bad]
     assert bool(torch.isfinite(got).all()), "the kernel left a non-finite distance"
     err = (got - want).abs()
@@ -542,22 +549,12 @@ def transposed_codes(torch, vectors3d):
 
 def int8mxu_check(torch, args, tag: str):
     """The expansion scorer's kernel against its plain version on ``args``
-    (qcodes, qscale, qnorm2, rows, codesT3d, norms2, scales): within
-    MXU_ATOL + MXU_RTOL |want| everywhere and the same stable order of each
-    (query, probe)'s pad row.  Returns (max abs error, kernel ms, plain ms)."""
+    (qcodes, qscale, qnorm2, rows, codesT3d, norms2, scales), as
+    int8mxu_compare holds it, and both timed.  Returns (max abs error,
+    kernel ms, plain ms)."""
     from spfresh_tpu_torch.ops import rerank
 
-    got = rerank.padded_rerank_distances_int8mxu(*args)
-    want = rerank.padded_rerank_distances_int8mxu_plain(*args)
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    over = int((err > MXU_ATOL + MXU_RTOL * want.abs()).sum())
-    assert over == 0, f"{tag}: {over} int8mxu scores outside rtol {MXU_RTOL} atol {MXU_ATOL}"
-    order_differs = int((torch.argsort(got, dim=-1, stable=True)
-                         != torch.argsort(want, dim=-1, stable=True)).any(dim=-1).sum())
-    assert order_differs == 0, f"{tag}: {order_differs} (query, probe) orders differ"
-    max_abs = float(err.max())
-    del got, want, err
+    max_abs = int8mxu_compare(torch, args, tag)
     ms = cuda_ms(torch, lambda: rerank.padded_rerank_distances_int8mxu(*args), 20)
     plain_ms = cuda_ms(torch, lambda: rerank.padded_rerank_distances_int8mxu_plain(*args), 2)
     return max_abs, ms, plain_ms
@@ -602,11 +599,131 @@ def kernel_int8mxu(torch, report):
     gbps = Q * nprobe * pad * d / (ms * 1e-3) / 1e9
     tops = 2 * Q * nprobe * pad * d / (ms * 1e-3) / 1e12
     log(f"kernel rerank_int8mxu: C={C} pad={pad} d={d} Q={Q} nprobe={nprobe} (rerank_bench) "
-        f"max_abs_err={max_abs:.3e} (rtol {MXU_RTOL} atol {MXU_ATOL}), stable order equal; "
+        f"max_abs_err={max_abs:.3e} (bit-equal to the plain version); "
         f"kernel={ms:.4f} ms ({gbps:.0f} GB/s code reads, {tops:.2f} TOP/s) "
-        f"plain={plain_ms:.4f} ms; the rows probe {b.pop('probed')} of {C} slabs")
+        f"plain={plain_ms:.4f} ms bound={b['bound_ms']:.4f} ms ({b['bound_by']}); "
+        f"the rows probe {b.pop('probed')} of {C} slabs; "
+        f"{int8mxu_schedule_note(torch, rows_d, C, d, pad)}")
     report["rerank_int8mxu"] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
                                 "library_ms": None, **b}
+
+
+def int8mxu_schedule_note(torch, rows, cpad: int, d: int, pad: int) -> str:
+    """The scorer's slab-major schedule of ``rows``, timed alone (it is part
+    of every kernel time above), with how it groups the pairs and the
+    kernel's stage geometry at (d, pad)."""
+    from spfresh_tpu_torch.ops import rerank
+
+    geo = rerank.int8mxu_geometry(d, pad)
+    sched_ms = cuda_ms(torch, lambda: rerank.rerank_schedule(rows, cpad, geo["group"]), 20)
+    return (f"schedule alone {sched_ms:.4f} ms; {schedule_stats(torch, rows, cpad)}; "
+            f"geometry {geo}")
+
+
+def int8mxu_compare(torch, args, tag: str) -> float:
+    """The scorer's kernel against its plain version on ``args``; rows out
+    of range must give NaN rows on the card and are left out.  Up to d
+    1,040, where every dot is an exact f32 integer in both: bit-equal;
+    above it within MXU_ATOL + MXU_RTOL |want| with the same stable order
+    of each (query, probe)'s pad row.  Returns the max abs error."""
+    from spfresh_tpu_torch.ops import rerank
+
+    rows = args[3]
+    exact = args[4].shape[1] <= 1040
+    bad = (rows < 0) | (rows >= args[4].shape[0])
+    got = rerank.padded_rerank_distances_int8mxu(*args)
+    want = rerank.padded_rerank_distances_int8mxu_plain(
+        *args[:3], torch.where(bad, 0, rows), *args[4:])
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[bad]).all()), f"{tag}: an out-of-range row did not give NaN"
+    got, want = got[~bad], want[~bad]
+    assert bool(torch.isfinite(got).all()), f"{tag}: the kernel left a non-finite score"
+    if got.numel() == 0:
+        return 0.0
+    err = float((got - want).abs().max())
+    if exact:
+        assert torch.equal(got, want), f"{tag}: not bit-equal to the plain version ({err})"
+        return err
+    over = int(((got - want).abs() > MXU_ATOL + MXU_RTOL * want.abs()).sum())
+    assert over == 0, f"{tag}: {over} scores outside rtol {MXU_RTOL} atol {MXU_ATOL}"
+    assert torch.equal(torch.argsort(got, dim=-1, stable=True),
+                       torch.argsort(want, dim=-1, stable=True)), f"{tag}: stable orders differ"
+    return err
+
+
+def int8mxu_edge_cases(torch) -> None:
+    """The expansion scorer against its plain version where its schedule and
+    stages have edges: d 16, 20, 128, 960, 1,040, 2,048 and 4,096 (k-chunks
+    of the slab, a query row not 16-byte aligned at d 20) at pads 4, 240,
+    336, 528 and 1,000 (one column pass; no stage divides 1,000) and 1,100
+    and 2,052 (two and three column passes); then one slab probed by 4,096
+    pairs, a single pair, slabs whose rows are all equal (every score of a
+    row ties) and out-of-range rows (NaN rows).  Bit-equal up to d 1,040;
+    above it within MXU_RTOL / MXU_ATOL with the same stable order.  A codes
+    or |r|^2 table that is not 16-byte aligned must raise."""
+    from spfresh_tpu_torch.ops import rerank
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def inputs(C, d, pad, rows, equal_rows=False):
+        codes = torch.randint(-128, 128, (C, d, 1 if equal_rows else pad), generator=g,
+                              device=dev, dtype=torch.int8)
+        codes = codes.expand(C, d, pad).contiguous()
+        norms2 = (codes.to(torch.int32) ** 2).sum(dim=1, dtype=torch.int32)
+        scales = torch.rand(C, generator=g, device=dev) * 0.02 + 0.005
+        Q, nprobe = rows.shape
+        qcodes = torch.randint(-127, 128, (Q, nprobe, d), generator=g, device=dev,
+                               dtype=torch.int8)
+        qscale = torch.rand((Q, nprobe), generator=g, device=dev) * 0.02 + 0.005
+        qnorm2 = torch.rand((Q, nprobe), generator=g, device=dev) * 100.0
+        return (qcodes, qscale, qnorm2, rows, codes, norms2, scales)
+
+    worst, worst_wide, n = 0.0, 0.0, 0
+    for d in (16, 20, 128, 960, 1040, 2048, 4096):
+        for pad in (4, 240, 336, 528, 1000, 1100, 2052):
+            C = 12
+            rows = torch.randint(0, C, (40, 5), generator=g, device=dev, dtype=torch.int32)
+            err = int8mxu_compare(torch, inputs(C, d, pad, rows), f"int8mxu edge d={d} pad={pad}")
+            if d <= 1040:
+                worst = max(worst, err)
+            else:
+                worst_wide = max(worst_wide, err)
+            n += 1
+        log(f"kernel int8mxu edges: d={d} geometry at pad 336 {rerank.int8mxu_geometry(d, 336)}, "
+            f"at pad 2,052 {rerank.int8mxu_geometry(d, 2052)}")
+    C = 16
+    hot = torch.full((512, 8), 3, dtype=torch.int32, device=dev)
+    one = torch.full((1, 1), 5, dtype=torch.int32, device=dev)
+    bad = torch.randint(0, C, (64, 6), generator=g, device=dev, dtype=torch.int32)
+    bad[0, 0], bad[1, 5], bad[7, 2], bad[63, 0] = -1, C, -2**31, 2**31 - 1
+    for d, pad in ((128, 336), (20, 1000), (960, 2052)):
+        for rows, equal_rows in ((hot, False), (one, False), (bad, False), (bad, True)):
+            tag = f"int8mxu edge d={d} pad={pad} rows {tuple(rows.shape)} equal={equal_rows}"
+            worst = max(worst, int8mxu_compare(torch, inputs(C, d, pad, rows, equal_rows), tag))
+            n += 1
+    log(f"kernel int8mxu edges: one slab x 4,096 pairs ({schedule_stats(torch, hot, C)}), one "
+        f"pair, equal rows and 4 out-of-range rows (NaN rows) agree at (d, pad) (128, 336), "
+        f"(20, 1000), (960, 2052)")
+    # Tables 4 bytes off a 16-byte boundary: the bulk copies cannot take them.
+    args = list(inputs(C, 128, 336, one))
+    for i, name in ((4, "codesT3d"), (5, "norms2")):
+        t = args[i]
+        buf = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.int8, device=dev)
+        off = buf[4 : 4 + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+        off.copy_(t)
+        assert off.is_contiguous() and off.data_ptr() % 16 == 4
+        bad_args = list(args)
+        bad_args[i] = off
+        try:
+            rerank.padded_rerank_distances_int8mxu(*bad_args)
+        except ValueError as e:
+            assert "16-byte aligned" in str(e), e
+        else:
+            raise AssertionError(f"a {name} 4 bytes off 16-byte alignment did not raise")
+    log(f"kernel int8mxu edges: {n} cases; bit-equal up to d 1,040 (max abs err {worst:.3e}), "
+        f"d 2,048 / 4,096 max abs err {worst_wide:.3e} (rtol {MXU_RTOL} atol {MXU_ATOL}), "
+        f"stable order equal; unaligned codes and |r|^2 tables raise")
 
 
 def kernel_centroid_scan(torch, report):
@@ -1662,9 +1779,10 @@ def large_int8mxu(torch, index, view, queries, nprobe: int, report) -> None:
                       for a, e in zip(mxu_ids, elem_ids)])
     log(f"large int8mxu: {launches} launches scoring {len(queries)} queries at nprobe={nprobe}; "
         f"last batch Q={Q} Cpad={codesT.shape[0]} d_pad={d} pad={pad}: max_abs_err={max_abs:.3e} "
-        f"(rtol {MXU_RTOL} atol {MXU_ATOL}), stable order equal; kernel={ms:.4f} ms "
+        f"(bit-equal to the plain version); kernel={ms:.4f} ms "
         f"plain={plain_ms:.4f} ms bound={b['bound_ms']:.4f} ms ({b['bound_by']}, "
-        f"{b['probed']} slabs probed)")
+        f"{b['probed']} slabs probed); "
+        f"{int8mxu_schedule_note(torch, last[3], codesT.shape[0], d, pad)}")
     log(f"large int8mxu: top-10 candidates shared with the elementwise int8 rerank: "
         f"mean {match.mean():.4f} of 10, min {match.min()}, "
         f"{int((match == 10).sum())} of {len(match)} queries all 10")

@@ -119,12 +119,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.spf_rerank_schedule.restype = i
     lib.spf_rerank_int8mxu.argtypes = [
-        p, p, p, p,          # qcodes, qscale, qnorm2, rows
-        p, p, p, p,          # codesT3d, norms2, scales, out
-        i, i, i, i, i,       # Q, nprobe, C, d, pad
+        p, p, p,             # qcodes, qscale, qnorm2
+        p, p, p,             # codesT3d, norms2, scales
+        p, p, p,             # schedule: order, items, totals
+        p,                   # out
+        i, i, i,             # P = Q * nprobe, item slots, resident blocks
+        i, i,                # d, pad
         p,                   # stream
     ]
     lib.spf_rerank_int8mxu.restype = i
+    lib.spf_rerank_int8mxu_geometry.argtypes = [i, i, ctypes.POINTER(i)]  # d, pad, out[8]
+    lib.spf_rerank_int8mxu_geometry.restype = i
+    lib.spf_rerank_int8mxu_prepare.argtypes = [i, i, ctypes.POINTER(i)]  # d, pad, out: blocks
+    lib.spf_rerank_int8mxu_prepare.restype = i
     lib.spf_window_scan.argtypes = [
         p, p, p,             # caug, qaug, out
         i, i, i,             # Q, Cpad, d_pad

@@ -318,6 +318,32 @@ def _check_int8mxu(qcodes, qscale, qnorm2, rows, codesT3d, norms2, scales) -> No
             raise ValueError("all int8mxu rerank inputs must be on one device")
 
 
+@functools.lru_cache(maxsize=None)
+def int8mxu_geometry(d: int, pad: int) -> dict:
+    """The expansion scorer's work-item size and stage geometry for slabs of
+    (d, pad), as the built library computes them: pad taken in ``passes``
+    column passes of ``width``, ``kc`` k-rows a stage, ``nk`` stages a
+    pass of an item, a ring of ``stages``, ``consumers`` warps."""
+    out = (ctypes.c_int * 8)()
+    rc = _build.library().spf_rerank_int8mxu_geometry(d, pad, out)
+    if rc != 0:
+        raise ValueError(f"d={d} pad={pad}: no int8mxu geometry (both must be multiples of 4)")
+    return dict(zip(("group", "width", "passes", "kc", "nk", "stages", "smem", "consumers"),
+                    out))
+
+
+@functools.lru_cache(maxsize=None)
+def _int8mxu_blocks(device: int, d: int, pad: int) -> int:
+    """Readies the expansion scorer on ``device`` (its shared-memory size)
+    and returns how many of its persistent blocks the card holds at once
+    at (d, pad)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.library().spf_rerank_int8mxu_prepare(d, pad, ctypes.byref(out))
+    _build.check(rc, "int8mxu rerank prepare")
+    return out.value
+
+
 def padded_rerank_distances_int8mxu(qcodes: torch.Tensor, qscale: torch.Tensor,
                                     qnorm2: torch.Tensor, rows: torch.Tensor,
                                     codesT3d: torch.Tensor, norms2: torch.Tensor,
@@ -328,11 +354,14 @@ def padded_rerank_distances_int8mxu(qcodes: torch.Tensor, qscale: torch.Tensor,
     queries (``quantize_centered_queries``) and every row of each probed
     slab of ``codesT3d`` (C, d, pad) int8, the residual codes TRANSPOSED
     so pad is the contiguous axis, with ``norms2`` (C, pad) int32 the
-    per-row |r|^2 and ``scales`` (C,) f32 the slab scales.
+    per-row |r|^2 and ``scales`` (C,) f32 the slab scales.  An
+    out-of-range slab index gives a NaN row on the card.
 
-    ``native_int8`` names the JAX kernel's two forms (an int8 x int8 or an
-    f32-accumulated dot); both dots are exact, so the result is the same
-    and the flag changes nothing here."""
+    On the card the pairs are first grouped by slab (``rerank_schedule``,
+    the rerank's work items), so the kernel reads each probed slab once per
+    group.  ``native_int8`` names the JAX kernel's two forms (an int8 x
+    int8 or an f32-accumulated dot); both dots are exact, so the result is
+    the same and the flag changes nothing here."""
     global int8mxu_launches
     _check_int8mxu(qcodes, qscale, qnorm2, rows, codesT3d, norms2, scales)
     if not isinstance(native_int8, bool):
@@ -347,21 +376,30 @@ def padded_rerank_distances_int8mxu(qcodes: torch.Tensor, qscale: torch.Tensor,
     if d % 4 or pad % 4:
         raise ValueError(f"d={d} and pad={pad} must be multiples of 4 for 4-byte loads")
     if Q * nprobe >= 2**31:
-        raise ValueError(f"Q*nprobe={Q * nprobe} exceeds the kernel's grid")
+        raise ValueError(f"Q*nprobe={Q * nprobe} exceeds the kernel's int32 pair index")
     named = (("qcodes", qcodes), ("qscale", qscale), ("qnorm2", qnorm2), ("rows", rows),
              ("codesT3d", codesT3d), ("norms2", norms2), ("scales", scales))
     for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 4:
-            raise ValueError(f"{name} must be 4-byte aligned")
+        # The slab codes and |r|^2 rows arrive by bulk copy (16-byte aligned);
+        # the query codes by 4-byte copies.
+        align = 16 if name in ("codesT3d", "norms2") else 4
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
     out = torch.empty((Q, nprobe, pad), dtype=torch.float32, device=rows.device)
+    if Q * nprobe == 0 or pad == 0:
+        return out
+    geo = int8mxu_geometry(d, pad)
+    blocks = _int8mxu_blocks(rows.device.index if rows.device.index is not None
+                             else torch.cuda.current_device(), d, pad)
+    order, items, totals = rerank_schedule(rows, C, geo["group"])
     rc = _build.library().spf_rerank_int8mxu(
-        qcodes.data_ptr(), qscale.data_ptr(), qnorm2.data_ptr(), rows.data_ptr(),
-        codesT3d.data_ptr(), norms2.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        Q, nprobe, C, d, pad, torch.cuda.current_stream(rows.device).cuda_stream,
+        qcodes.data_ptr(), qscale.data_ptr(), qnorm2.data_ptr(), codesT3d.data_ptr(),
+        norms2.data_ptr(), scales.data_ptr(), order.data_ptr(), items.data_ptr(),
+        totals.data_ptr(), out.data_ptr(), Q * nprobe, items.shape[0], blocks, d, pad,
+        torch.cuda.current_stream(rows.device).cuda_stream,
     )
     _build.check(rc, "int8mxu rerank")
     int8mxu_launches += 1
     return out
-
