@@ -36,7 +36,31 @@ Phases, each printing a line:
               search of 8,192 queries in one batch (the probe axis taken
               in chunks; peak memory logged) whose first 64 rows must equal
               an unchunked search.
-5. live     — live updates on main's index through
+5. disk     — main's index saved packed under build/ (deleted after) and
+              served from disk by LazySpannIndex on the card: the centroid
+              matrix on the device, each batch's unique probed slabs staged
+              by the native reader, cast to bf16 on the host and reranked
+              by the float rerank kernel.  16,384 queries at main's nprobe,
+              timed at batch 64 with prefetch 2 and at batch 1,024, and
+              4,096 of them at batch 64 with prefetch 0.
+              Gates: the kernel launched, no repeated id, recall@10 within
+              0.01 of the in-memory search, prefetch 0 and 2 equal, 1,000
+              queries' ids against the directory opened on the CPU, and
+              the search's peak device memory under an eighth of the
+              in-memory view's slab bytes.  Then LazySpFreshIndex on the
+              directory: 10,000 inserts in 512-batches (each then
+              searched), 4,096 hot-spot inserts (Split and Reassign run),
+              5,000 deletes and the hot spot's, flush(); gates: every
+              surviving insert in its own top 10, or its miss shown in
+              f64 to be a routing near-tie (as in live) or routed away (a
+              merge or split moved its home centroid past the nprobe-th
+              nearest; a full-probe search must still find it), no
+              deleted or repeated id, Split and Reassign ran; with the
+              pipeline then stopped, a close and reopen (WAL replay) and
+              a compact() leave the same live postings and the same ids
+              (up to f64 ties, tie_explained); recall before and after
+              against brute force on the mutated corpus.
+6. live     — live updates on main's index through
               spfresh_tpu_torch.lire.SpFreshIndex (LireConfig max 512, min
               16, a store under build/ deleted after): benchmarks/
               streaming_updates.py's traffic (20,000 inserts in batches of
@@ -49,7 +73,7 @@ Phases, each printing a line:
               or repeated id; recall before and after against brute force
               on the mutated corpus.  Then 5,000 inserts and 2,000 deletes
               on a 262,144-row int8 index and the same repack gate.
-6. large    — the same generator at 4,194,304 x 128 (4,194 centers) with
+7. large    — the same generator at 4,194,304 x 128 (4,194 centers) with
               int8 (IVF-SQ8) storage: more than 32,768 clusters, so stage 1
               takes the windowed centroid scan and the rerank its quantized
               path; ground truth, the nprobe sweep to recall@10 >= 0.80
@@ -63,27 +87,36 @@ Phases, each printing a line:
               pad)), is held to its plain version, and its top-10 per query
               is compared with the elementwise int8 rerank's.  The int8
               rerank is also held to its plain version on the phase's own
-              windowed stage-1 rows, centered queries and scales.
-7. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
+              windowed stage-1 rows, centered queries and scales.  The
+              index is then saved packed and searched lazily on the card
+              (window scan and quantized rerank launched, recall within
+              0.01 of the in-memory search, 1,000 queries against the CPU).
+8. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
               d 960, 16,384 queries, seed 12345), a Manhattan bf16 build:
               the L1/Linf pairwise kernel runs the build's assignments,
               the closure pass, stage 1 and the ground truth; the sweep
               to recall@10 >= 0.90, the bf16 rerank against its plain
               version on the phase's slabs (d_pad 1,024) and stage-1 rows,
               and the device-time breakdown.
-8. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
+9. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
               sweep is printed (no target: Chebyshev plateaus on this data)
               and the rerank checked on the phase's slabs at nprobe 48.
-9. outofcore — benchmarks/outofcore_build_bench.py's corpus (8,388,608 x 96,
+10. outofcore — benchmarks/outofcore_build_bench.py's corpus (8,388,608 x 96,
               a memmap under build/) built out-of-core through
               Config.build_sample_rows (sample 1,048,576, tile 262,144, cap
               256, bf16): one nearest-centroid launch per tile, the replica
               kernel with db supplied; the budget invariants, both kernels
               against their plain versions on the build's first tile (the
               nearest centroid with the sample fit's centroids, the replica
-              top-k with db supplied and the final centroids), and a sweep of
-              16,384 queries through the windowed stage 1.
-10. exact   — a 20k f32 index: full-probe search must have recall exactly 1.0
+              top-k with db supplied and the final centroids), a sweep of
+              16,384 queries through the windowed stage 1, then the index
+              saved packed, the in-memory index and view released, and the
+              queries served from disk at nprobe 8 (prefetch 2; 4,096
+              queries with prefetch 0):
+              window scan and float rerank launched, recall within 0.01 of
+              the in-memory search, 1,000 queries against the CPU, peak
+              device memory under an eighth of the view's slab bytes.
+11. exact   — a 20k f32 index: full-probe search must have recall exactly 1.0
               (Euclidean; Manhattan and Chebyshev at d 960, where a miss is
               allowed only as a tie, shown in f64).
 
@@ -131,6 +164,7 @@ INT8_OPS = 1979e12   # tensor cores, dense int8
 PAIRWISE_RTOL, PAIRWISE_ATOL = 1e-5, 1e-4  # tests/test_pallas_pairwise.py: L1 sum order
 GIST_D, GIST_LATENT = 960, 32
 OC_N, OC_D, OC_SAMPLE, OC_TILE = 8_388_608, 96, 1_048_576, 262_144
+OC_NPROBE = 8  # the out-of-core phase's serving point (in-memory recall@10 0.9792)
 RERANK_RTOL = 1e-5   # f32 sums of 128 terms in another order
 REPLICA_RTOL = 1e-4  # expansion-form ranks, f32, another summation order
 # Nearest-centroid distances |x|^2 + |c|^2 - 2 x.c: f32 sums of d products in
@@ -151,6 +185,12 @@ TIE_TOL = 1e-4       # relative gap under which two ranks or bounds count as tie
 # (tests/test_pallas_rerank.py): exact dots, the combine within an ulp.
 MXU_RTOL, MXU_ATOL = 3e-7, 1e-3
 LIVE_STORE = "live_store"  # under build/, deleted after the phase
+# Packed saves the disk tier serves, under build/, each deleted after its phase.
+DISK_STORE, LARGE_STORE, OC_STORE = "disk_index", "large_index", "oc_index"
+PHASE_T0 = [0.0]  # the disk phase's start, for the seconds its lines carry
+# Queries of the lazy timings that only give a rate (prefetch 0), so the
+# added searches stay inside the run's time.
+TIMING_NQ = 4096
 DEVICE = "cuda"
 
 
@@ -1138,6 +1178,9 @@ def phase_live(torch, index, data, queries, gt, nprobe: int, updates: int = 20_0
         t0 = time.perf_counter()
         fresh.flush()
         drain_s = time.perf_counter() - t0
+        # Freeze the store: close() would run further repair rounds, and the
+        # reopen below must replay exactly the state searched here.
+        fresh.pipeline.stop()
         counts = live_counts(metrics)
         log(f"live: inserts {updates / insert_s:.1f}/s ({insert_s:.2f} s); insert-then-visible "
             f"{updates / visible_s:.1f}/s ({visible_s:.2f} s, a search of 8 after each "
@@ -1264,6 +1307,333 @@ def live_int8(torch, store, failures, n: int) -> None:
         fresh.close()
     finally:
         shutil.rmtree(store, ignore_errors=True)
+
+
+def disk_log(msg: str) -> None:
+    """``log`` with the seconds since the disk phase began."""
+    log(f"[{time.perf_counter() - PHASE_T0[0]:.1f} s] {msg}")
+
+
+def lazy_timed(torch, lazy, queries, nprobe: int, batch: int, tag: str):
+    """One warm-up, then one timed lazy search of ``queries`` (host clock,
+    ending in a synchronize).  Device memory is read around the timed run:
+    the peak above what was allocated at its start is the lazy search's
+    own (the routing tier is allocated before).  Returns (ids, qps, peak
+    above start, absolute peak)."""
+    lazy.search(queries[: 2 * batch], 10, nprobe=nprobe, batch_size=batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ids, _ = lazy.search(queries, 10, nprobe=nprobe, batch_size=batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    qps = len(queries) / dt
+    per_batch = lazy.last_staged_bytes / max(1, lazy.last_batches)
+    log(f"{tag}: lazy search of {len(queries)} queries at nprobe={nprobe} batch={batch} "
+        f"prefetch={'on' if lazy._pipeline else 'off'}: {qps:.1f} QPS ({dt:.3f} s); staged "
+        f"{per_batch / 2**20:.3f} MiB of slabs a batch ({lazy.last_batches} batches); peak "
+        f"device memory {(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB "
+        f"allocated at its start ({peak / 2**20:.1f} MiB in all)")
+    return ids, qps, peak - base, peak
+
+
+def lazy_cpu_ids(store, queries, nprobe: int, tag: str, want: np.ndarray) -> int:
+    """The same directory opened with device="cpu" (plain versions): the
+    number of ids of ``queries`` that differ from ``want``."""
+    from spfresh_tpu_torch.index import LazySpannIndex
+
+    t0 = time.perf_counter()
+    with LazySpannIndex(str(store), device="cpu") as cpu:
+        got, _ = cpu.search(queries, 10, nprobe=nprobe, batch_size=256)
+    differ = int((got != want).sum())
+    log(f"{tag}: ids of {len(queries)} queries vs the same directory opened on the CPU (plain "
+        f"versions, {time.perf_counter() - t0:.1f} s): {differ} of {got.size} differ")
+    return differ
+
+
+def save_packed(index, store, tag: str) -> None:
+    import shutil
+
+    shutil.rmtree(store, ignore_errors=True)
+    t0 = time.perf_counter()
+    index.save(str(store), format="packed")
+    size = sum(f.stat().st_size for f in store.iterdir())
+    log(f"{tag}: saved packed under build/ ({size / 2**30:.3f} GiB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def phase_disk(torch, index, data, queries, gt, nprobe: int, inserts: int = 10_000,
+               hot_n: int = 4096, deletes: int = 5000) -> None:
+    """Main's index saved packed and served from disk by LazySpannIndex on
+    the card (the routing tier on the device, slabs staged per batch), then
+    LazySpFreshIndex live updates on that directory."""
+    import shutil
+    from pathlib import Path
+
+    from spfresh_tpu_torch.eval import recall_at_k
+    from spfresh_tpu_torch.index import LazySpannIndex
+    from spfresh_tpu_torch.ops import centroid_scan, rerank
+
+    store = Path(__file__).resolve().parent / "build" / DISK_STORE
+    PHASE_T0[0] = time.perf_counter()
+    try:
+        save_packed(index, store, "disk")
+        view = index.padded_view()
+        slab_bytes = view.vectors3d.numel() * view.vectors3d.element_size()
+        mem_ids, _ = index.search(queries, 10, nprobe=nprobe)
+        rec_mem = recall_at_k(mem_ids, gt, 10)
+        rerank.launches = rerank.quantized_launches = centroid_scan.launches = 0
+        with LazySpannIndex(str(store), prefetch_threads=2, device=DEVICE) as lazy:
+            ids, qps2, peak, _ = lazy_timed(torch, lazy, queries, nprobe, 64, "disk")
+            counts = {"rerank": rerank.launches, "rerank_int8": rerank.quantized_launches,
+                      "centroid_scan": centroid_scan.launches}
+            disk_log(f"disk: kernel launches in the lazy searches of the phase {counts}")
+            _, qps_big, peak_big, _ = lazy_timed(torch, lazy, queries, nprobe, 1024, "disk")
+        with LazySpannIndex(str(store), prefetch_threads=0, device=DEVICE) as lazy0:
+            ids0, qps0, _, _ = lazy_timed(torch, lazy0, queries[:TIMING_NQ], nprobe, 64, "disk")
+        assert counts["rerank"] > 0, "the float rerank kernel did not run in the lazy search"
+        assert_no_duplicates(ids)
+        rec = recall_at_k(ids, gt, 10)
+        disk_log(f"disk: recall@10 at nprobe={nprobe}: lazy {rec:.4f}, in-memory {rec_mem:.4f}; "
+            f"QPS batch 64 prefetch 2 / 0: {qps2:.1f} / {qps0:.1f}, batch 1,024: {qps_big:.1f}; "
+            f"peak above start {peak / 2**20:.1f} MiB (batch 1,024: {peak_big / 2**20:.1f} MiB) "
+            f"against the in-memory view's slabs {slab_bytes / 2**20:.1f} MiB")
+        assert abs(rec - rec_mem) <= 0.01, (rec, rec_mem)
+        assert int((ids0 != ids[:TIMING_NQ]).sum()) == 0, "prefetch 0 and 2 returned different ids"
+        assert peak < slab_bytes / 8, (peak, slab_bytes)
+        differ = lazy_cpu_ids(store, queries[:1000], nprobe, "disk", ids[:1000])
+        assert differ <= ids[:1000].size // 1000, f"{differ} ids differ from the CPU path"
+        disk_fresh(torch, store, data, queries, nprobe, rec, inserts, hot_n, deletes)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def lazy_visibility(storage, vecs, vids, nprobe: int):
+    """Why each insert ``vids`` that its own search missed was missed, in
+    f64 against the live centroids: a routing near-tie (a home posting's
+    centroid within TIE_TOL of the nprobe-th nearest, as in
+    ``visibility_ties``), routed away (every home posting's centroid
+    farther than the nprobe-th nearest, so no nprobe-probe search reaches
+    it: a merge or split moved the centroid), or neither (a home posting
+    was probed, yet the search missed it).  Returns (ties, routed away,
+    neither) as lists of positions in ``vids``."""
+    _, pids, cents = storage.centroid_matrix()
+    order = np.argsort(pids)
+    pids = np.asarray(pids)[order]
+    C = np.asarray(cents, np.float64)[order]
+    ties, away, neither = [], [], []
+    for i, (v, vid) in enumerate(zip(vecs, vids)):
+        D = ((C - v.astype(np.float64)) ** 2).sum(1)
+        kth = np.partition(D, nprobe - 1)[nprobe - 1]
+        homes = storage.postings_of(int(vid))
+        home_d = [D[np.searchsorted(pids, h)] for h in homes]
+        best = min(home_d, default=np.inf)
+        if abs(best - kth) <= TIE_TOL * max(kth, 1e-12):
+            ties.append(i)
+        elif homes and best > kth:
+            away.append(i)
+        else:
+            neither.append(i)
+        if i < 20:
+            disk_log(f"disk live: insert {int(vid)} "
+                f"missed: homes {homes}, f64 home centroid distance {best:.6f}, {nprobe}-th "
+                f"nearest centroid {kth:.6f}")
+    return ties, away, neither
+
+
+def store_state(storage) -> dict:
+    """Each live posting's live ids and centroid bytes: what a WAL replay
+    must restore."""
+    out = {}
+    for pid in storage.posting_ids():
+        ids, _, _ = storage.get_posting(pid)
+        out[pid] = (sorted(ids.tolist()), storage.get_posting_centroid(pid).tobytes())
+    return out
+
+
+def bf16_f64(x) -> np.ndarray:
+    """``x`` rounded to bf16 (half to even), in f64: what the lazy bf16
+    search compares."""
+    import torch
+
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return t.to(torch.bfloat16).to(torch.float64).numpy()
+
+
+def tie_explained(storage, vec_of, queries, a, b, nprobe: int, tag: str) -> int:
+    """Rows where the ids ``a`` and ``b`` of two searches of one live index
+    differ, less those an f64 tie explains.  A row is a tie when every id
+    in one result and not the other is a rank tie (its f64 distance from
+    the bf16-rounded query to its bf16-rounded vector within TIE_TOL of
+    the row's 10th) or a routing tie (a posting holding it has its
+    centroid within TIE_TOL of the nprobe-th nearest, as in
+    ``visibility_ties``).  Returns the rows left unexplained."""
+    _, pids, cents = storage.centroid_matrix()
+    order = np.argsort(pids)
+    pids = np.asarray(pids)[order]
+    C = np.asarray(cents, np.float64)[order]
+    bad = 0
+    for r in np.flatnonzero((a != b).any(axis=1)):
+        q = bf16_f64(queries[r])
+        Dc = ((C - queries[r].astype(np.float64)) ** 2).sum(1)
+        kth_c = np.partition(Dc, nprobe - 1)[nprobe - 1]
+        both = [int(i) for i in set(a[r].tolist()) | set(b[r].tolist()) if i >= 0]
+        dist = {i: float(((bf16_f64(vec_of(i)) - q) ** 2).sum()) for i in both}
+        kth = max(sorted(dist[int(i)] for i in row if i >= 0)[-1] for row in (a[r], b[r]))
+        notes = []
+        bad_id = False  # equal sets in another order: the swapped ids tie in f32
+        for i in sorted(set(a[r].tolist()) ^ set(b[r].tolist()) - {-1}):
+            homes = [h for h in storage.postings_of(i) if h in set(pids.tolist())]
+            home_d = [Dc[np.searchsorted(pids, h)] for h in homes]
+            rank_tie = abs(dist[i] - kth) <= TIE_TOL * max(kth, 1e-12)
+            route_tie = any(abs(h - kth_c) <= TIE_TOL * max(kth_c, 1e-12) for h in home_d)
+            notes.append((i, round(dist[i], 6), [round(float(h), 6) for h in home_d],
+                          rank_tie, route_tie))
+            bad_id = not (rank_tie or route_tie)
+            if bad_id:
+                break
+        bad += int(bad_id)
+        log(f"{tag}: query {r}: 10th f64 distance {kth:.6f}, {nprobe}-th centroid "
+            f"{kth_c:.6f}; (id, distance, home centroid distances, rank tie, routing tie) "
+            f"{notes}")
+    return bad
+
+
+def disk_fresh(torch, store, data, queries, nprobe: int, rec_before: float, inserts: int,
+               hot_n: int, deletes: int) -> None:
+    """LazySpFreshIndex on the disk phase's directory: ``live``'s traffic at
+    smaller counts, then WAL replay on reopen and compact()."""
+    from spfresh_tpu_torch.eval import recall_at_k
+    from spfresh_tpu_torch.index import brute_force_search
+    from spfresh_tpu_torch.lire import LazySpFreshIndex, LireConfig
+    from spfresh_tpu_torch.ops import rerank
+    from spfresh_tpu_torch.utils import metrics
+
+    n, batch = len(data), 512
+    lc = LireConfig(max_partition_size=512, min_partition_size=16)
+    metrics.DEFAULT.reset()
+    rerank.launches = 0
+    t0 = time.perf_counter()
+    fresh = LazySpFreshIndex(str(store), lire_config=lc, device=DEVICE)
+    disk_log(f"disk live: LazySpFreshIndex over {fresh.num_clusters} postings in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    try:
+        ins = mixture_more(12345, n, inserts, 21)
+        ins_ids = np.arange(n, n + inserts)
+        probe = queries[:8]
+        t0 = time.perf_counter()
+        for s in range(0, inserts, batch):
+            fresh.insert_batch(ins[s : s + batch], ins_ids[s : s + batch])
+            fresh.search(probe, 10, nprobe=nprobe)
+        visible_s = time.perf_counter() - t0
+        rng = np.random.default_rng(23)
+        hot_at = int(rng.integers(n))
+        hot = (data[hot_at] + 0.01 * rng.standard_normal((hot_n, data.shape[1]))).astype(
+            np.float32)
+        hot_ids = np.arange(n + inserts, n + inserts + hot_n)
+        t0 = time.perf_counter()
+        for s in range(0, hot_n, batch):
+            fresh.insert_batch(hot[s : s + batch], hot_ids[s : s + batch])
+        hot_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh.flush()
+        drain_hot_s = time.perf_counter() - t0
+        del_ids = rng.choice(n, size=deletes, replace=False)
+        t0 = time.perf_counter()
+        deleted = fresh.delete_batch(del_ids)
+        deleted += fresh.delete_batch(hot_ids)  # as in live: the hot spot goes again
+        delete_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh.flush()
+        drain_s = time.perf_counter() - t0
+        # Freeze the store: close() would run further repair rounds, and the
+        # reopen below must replay exactly the state searched here.
+        fresh.pipeline.stop()
+        counts = live_counts(metrics)
+        disk_log(f"disk live: insert-then-visible {inserts / visible_s:.1f}/s ({visible_s:.2f} s, "
+            f"a search of 8 after each {batch}-batch); hot-spot inserts {hot_n / hot_s:.1f}/s "
+            f"({hot_s:.2f} s, drain {drain_hot_s:.2f} s); deletes {deleted / delete_s:.1f}/s "
+            f"({deleted} of {deletes + hot_n}, {delete_s:.2f} s); drain {drain_s:.2f} s; postings "
+            f"{fresh.num_clusters}, overlay rows {fresh.storage.overlay_rows()}; counts {counts}")
+        failures = []
+        for op in ("split", "reassign"):
+            if counts[f"lire.{op}.ok"] < 1:
+                failures.append(f"no {op} completed")
+
+        live = np.ones(n, bool)
+        live[del_ids] = False
+        all_data = np.concatenate([data[live], ins])
+        all_ids = np.concatenate([np.arange(n)[live], ins_ids])
+        _, gt_rows = brute_force_search(all_data, queries, 10, device=DEVICE, batch_size=4096)
+        after, _ = fresh.search(queries, 10, nprobe=nprobe)
+        rec = recall_at_k(after, all_ids[gt_rows], 10)
+        dead = np.isin(after, np.concatenate([del_ids, hot_ids]))
+        disk_log(f"disk live: recall@10 at nprobe={nprobe} before {rec_before:.4f}, after the "
+            f"updates {rec:.4f} (exact ground "
+            f"truth of the mutated corpus, {len(all_data)} rows); deleted ids returned "
+            f"{int(dead.sum())}")
+        if dead.any():
+            failures.append("a deleted id was returned")
+        try:
+            assert_no_duplicates(after)
+        except AssertionError as e:
+            failures.append(str(e))
+        mine, mine_ids = ins, ins_ids
+        got, _ = fresh.search(mine, 10, nprobe=nprobe)
+        miss = np.flatnonzero(~(got == mine_ids[:, None]).any(axis=1))
+        ties, away, neither = lazy_visibility(fresh.storage, mine[miss], mine_ids[miss], nprobe)
+        # A routed-away insert must still be stored where a search finds
+        # it: one probing every posting (at most 64 of them, one batch).
+        far = miss[away[:64]]
+        found = fresh.search(mine[far], 10, nprobe=fresh.num_clusters)[0] if len(far) else \
+            np.empty((0, 10), np.int64)
+        lost = int((~(found == mine_ids[far, None]).any(axis=1)).sum())
+        disk_log(f"disk live: {len(mine)} inserts searched "
+            f"for their own vectors: {len(miss)} not in their top 10: {len(ties)} routing "
+            f"near-ties, {len(away)} routed away (every home centroid farther than the "
+            f"{nprobe}-th nearest, in f64), of which a full-probe search misses {lost} of "
+            f"{len(far)}, and {len(neither)} neither")
+        if neither or lost or len(away) > len(far):
+            failures.append(f"inserts not visible: {len(neither)} with a home probed, {lost} "
+                            "not found by a full probe")
+        disk_log(f"disk live: float rerank launches in the phase's updates and searches: "
+                 f"{rerank.launches}")
+
+        def vec_of(i):
+            return data[i] if i < n else ins[i - n]
+
+        state = store_state(fresh.storage)
+        fresh.close()
+        t0 = time.perf_counter()
+        fresh = LazySpFreshIndex(str(store), lire_config=lc, device=DEVICE)
+        replay_s = time.perf_counter() - t0
+        if store_state(fresh.storage) != state:
+            failures.append("the reopened store (WAL replay) differs from the one closed")
+        reopened, _ = fresh.search(queries, 10, nprobe=nprobe)
+        differ = int((reopened != after).sum())
+        disk_log(f"disk live: reopen (WAL replay) in {replay_s:.2f} s: {differ} of {after.size} "
+                 "ids differ")
+        unexplained = tie_explained(fresh.storage, vec_of, queries, after, reopened, nprobe,
+                                    "disk live: reopen")
+        t0 = time.perf_counter()
+        fresh.compact()
+        compact_s = time.perf_counter() - t0
+        if store_state(fresh.storage) != state:
+            failures.append("compact() changed the live postings")
+        compacted, _ = fresh.search(queries, 10, nprobe=nprobe)
+        differ_c = int((compacted != after).sum())
+        disk_log(f"disk live: compact() in {compact_s:.2f} s: {differ_c} of {after.size} ids "
+                 f"differ from before the reopen, {int((compacted != reopened).sum())} from after "
+                 "it")
+        unexplained += tie_explained(fresh.storage, vec_of, queries, after, compacted, nprobe,
+                                     "disk live: compact")
+        if unexplained:
+            failures.append(f"reopen / compact changed {unexplained} rows without an f64 tie")
+        assert not failures, f"disk live gates failed: {failures}"
+    finally:
+        fresh.close()
 
 
 def phase_metric(torch, metric: str, n: int, nq: int, report, target) -> None:
@@ -1448,13 +1818,22 @@ def phase_outofcore(torch, n: int, nq: int, report) -> None:
     Config.build_sample_rows, its invariants, the nearest-centroid and
     replica kernels against their plain versions on a real tile, and a
     sweep through the windowed stage 1."""
+    import gc
     import math
+    import shutil
     from pathlib import Path
 
-    from spfresh_tpu_torch.index import Config, SpannIndexBuilder, brute_force_search
-    from spfresh_tpu_torch.ops import centroid_scan, replica, topk
+    from spfresh_tpu_torch.eval import recall_at_k
+    from spfresh_tpu_torch.index import (
+        Config,
+        LazySpannIndex,
+        SpannIndexBuilder,
+        brute_force_search,
+    )
+    from spfresh_tpu_torch.ops import centroid_scan, replica, rerank, topk
 
     path = Path(__file__).resolve().parent / "build" / "oc_corpus.f32"
+    store = path.parent / OC_STORE
     path.parent.mkdir(parents=True, exist_ok=True)
     try:
         t0 = time.perf_counter()
@@ -1532,8 +1911,40 @@ def phase_outofcore(torch, n: int, nq: int, report) -> None:
         centroid_scan.launches = 0
         sweep(torch, index, queries, gt, "outofcore", target=None)
         assert centroid_scan.launches > 0, "the windowed stage 1 did not run"
+
+        # The DEEP-shaped serving path: the index saved packed, the
+        # in-memory index and view released, then served from disk.
+        mem_ids, _ = index.search(queries, 10, nprobe=OC_NPROBE)
+        rec_mem = recall_at_k(mem_ids, gt, 10)
+        slab_bytes = view.vectors3d.numel() * view.vectors3d.element_size()
+        save_packed(index, store, "outofcore")
+        del index, view, builder, result, mem_ids
+        gc.collect()
+        torch.cuda.empty_cache()
+        centroid_scan.launches = rerank.launches = rerank.quantized_launches = 0
+        with LazySpannIndex(str(store), prefetch_threads=2, device=DEVICE) as lazy:
+            ids, qps2, peak, peak_abs = lazy_timed(torch, lazy, queries, OC_NPROBE, 64,
+                                                   "outofcore")
+        counts = {"centroid_scan": centroid_scan.launches, "rerank": rerank.launches,
+                  "rerank_int8": rerank.quantized_launches}
+        with LazySpannIndex(str(store), prefetch_threads=0, device=DEVICE) as lazy0:
+            ids0, qps0, _, _ = lazy_timed(torch, lazy0, queries[:TIMING_NQ], OC_NPROBE, 64,
+                                          "outofcore")
+        rec = recall_at_k(ids, gt, 10)
+        log(f"outofcore: lazy kernel launches {counts}; recall@10 at nprobe={OC_NPROBE}: lazy "
+            f"{rec:.4f}, in-memory {rec_mem:.4f}; QPS batch 64 prefetch 2 / 0: {qps2:.1f} / "
+            f"{qps0:.1f}; peak {peak / 2**20:.1f} MiB above start ({peak_abs / 2**20:.1f} MiB "
+            f"in all) against the released view's slabs {slab_bytes / 2**20:.1f} MiB")
+        assert counts["centroid_scan"] > 0 and counts["rerank"] > 0, counts
+        assert_no_duplicates(ids)
+        assert abs(rec - rec_mem) <= 0.01, (rec, rec_mem)
+        assert int((ids0 != ids[:TIMING_NQ]).sum()) == 0, "prefetch 0 and 2 returned different ids"
+        assert peak_abs < slab_bytes / 8, (peak_abs, slab_bytes)
+        differ = lazy_cpu_ids(store, queries[:1000], OC_NPROBE, "outofcore", ids[:1000])
+        assert differ <= ids[:1000].size // 1000, f"{differ} ids differ from the CPU path"
     finally:
         path.unlink(missing_ok=True)
+        shutil.rmtree(store, ignore_errors=True)
 
 
 def kernel_nearest(torch, data, result, report) -> None:
@@ -1711,10 +2122,44 @@ def phase_large(torch, n: int, nq: int, report) -> None:
         f"versions, {time.perf_counter() - t0:.1f} s): {differ} of {want.size} differ")
     assert differ <= want.size // 1000, f"{differ} of {want.size} ids differ from the CPU path"
     del cpu, want
+    large_lazy(torch, index, view, queries, gt, nprobe, rec)
     profile_search(torch, index, queries, nprobe, tag="profile large")
     kernel_rerank_view(torch, view, queries, nprobe, "Euclidean", "large")
     large_int8mxu(torch, index, view, queries, nprobe, report)
     compare_bf16(torch, cfg, data, queries, gt, index, (nprobe, 2 * nprobe))
+
+
+def large_lazy(torch, index, view, queries, gt, nprobe: int, rec_mem: float) -> None:
+    """The phase's int8 index saved packed and searched from disk on the
+    card: the windowed stage 1 and the quantized rerank of staged slabs."""
+    import shutil
+    from pathlib import Path
+
+    from spfresh_tpu_torch.eval import recall_at_k
+    from spfresh_tpu_torch.index import LazySpannIndex
+    from spfresh_tpu_torch.ops import centroid_scan, rerank
+
+    store = Path(__file__).resolve().parent / "build" / LARGE_STORE
+    try:
+        save_packed(index, store, "large")
+        slab_bytes = view.vectors3d.numel() * view.vectors3d.element_size()
+        rerank.launches = rerank.quantized_launches = centroid_scan.launches = 0
+        with LazySpannIndex(str(store), prefetch_threads=2, device=DEVICE) as lazy:
+            ids, qps, peak, _ = lazy_timed(torch, lazy, queries, nprobe, 64, "large")
+        counts = {"centroid_scan": centroid_scan.launches,
+                  "rerank_int8": rerank.quantized_launches, "rerank": rerank.launches}
+        rec = recall_at_k(ids, gt, 10)
+        log(f"large: lazy int8 kernel launches {counts}; recall@10 at nprobe={nprobe}: lazy "
+            f"{rec:.4f}, in-memory {rec_mem:.4f}; {qps:.1f} QPS; peak above start "
+            f"{peak / 2**20:.1f} MiB against the in-memory view's slabs {slab_bytes / 2**20:.1f} "
+            "MiB")
+        assert counts["centroid_scan"] > 0 and counts["rerank_int8"] > 0, counts
+        assert_no_duplicates(ids)
+        assert abs(rec - rec_mem) <= 0.01, (rec, rec_mem)
+        differ = lazy_cpu_ids(store, queries[:1000], nprobe, "large", ids[:1000])
+        assert differ <= ids[:1000].size // 1000, f"{differ} ids differ from the CPU path"
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
 
 
 def expansion_topk(torch, view, codesT, norms2, queries, nprobe: int, k: int = 10,
@@ -1931,13 +2376,21 @@ def main() -> int:
     log(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} count={torch.cuda.device_count()}")
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spfresh_tpu_torch import native
     from spfresh_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    path = _build.build()
-    _build.library()
-    log(f"build: {len(_build.sources())} sources -> {path.name} in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS[:2])})")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(native.build)  # the disk tier's reader, with g++
+        path = _build.build()
+        _build.library()
+        log(f"build: {len(_build.sources())} sources -> {path.name} in "
+            f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS[:2])})")
+        log(f"build: native host runtime -> {host.result().name} ({native.CXX} "
+            f"{' '.join(native.CXX_FLAGS)})")
+    native.library()
 
     assert not torch.backends.cuda.matmul.allow_tf32, "plain versions must not run in TF32"
     report = {}
@@ -1947,6 +2400,7 @@ def main() -> int:
         "main": lambda: main_state.update(zip(
             ("index", "data", "queries", "gt", "nprobe"),
             phase_main(torch, 1_000_000, 16_384, report))),
+        "disk": lambda: phase_disk(torch, **main_state),
         "live": lambda: phase_live(torch, **main_state),
         "large": lambda: phase_large(torch, LARGE_N, 16_384, report),
         "manhattan": lambda: phase_metric(torch, "Manhattan", 1_000_000, 16_384, report, 0.90),

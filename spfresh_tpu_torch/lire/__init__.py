@@ -1,10 +1,14 @@
 """LIRE / SPFresh in-place updates (counterpart of ``spfresh_tpu/lire/``):
 ``SpFreshIndex`` serves from the in-memory ``SpannIndex`` on its device
 and keeps its durable state in ``LireStorage`` files, format-compatible
-with the JAX package's.  ``LazySpFreshIndex`` and ``PackedLireStorage``
-belong to the disk tier, which is not ported yet."""
+with the JAX package's.  The disk tier: ``LazySpFreshIndex`` serves the same
+updates over a packed index on disk through ``index.LazySpannIndex``, with
+its state in ``PackedLireStorage`` (packed base, RAM overlay, WAL), whose
+files are byte-compatible with the JAX package's."""
 
 from spfresh_tpu_torch.lire.fresh import SpFreshIndex
+from spfresh_tpu_torch.lire.lazy_fresh import LazySpFreshIndex
+from spfresh_tpu_torch.lire.packed_storage import PackedLireStorage
 from spfresh_tpu_torch.lire.operations import (
     LireContext,
     LireOperationError,
@@ -33,6 +37,8 @@ __all__ = [
     "LireProtocol",
     "LireStorage",
     "LireStorageError",
+    "LazySpFreshIndex",
+    "PackedLireStorage",
     "Merge",
     "MergeError",
     "OperationResult",
