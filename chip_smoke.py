@@ -73,7 +73,32 @@ Phases, each printing a line:
               or repeated id; recall before and after against brute force
               on the mutated corpus.  Then 5,000 inserts and 2,000 deletes
               on a 262,144-row int8 index and the same repack gate.
-7. large    — the same generator at 4,194,304 x 128 (4,194 centers) with
+7. sharded  — multi-device serving: main's index as live left it in a
+              ShardedSpannIndex, 4 shards on cuda:0 when the card is alone
+              (one shard a card otherwise), batch 8,192.  Global nprobe at
+              main's recall point on 16,384 queries: the rerank launched
+              once per shard and batch, search.engine.cuda counted,
+              |recall@10 - the single index's| <= 0.002 (against exact
+              ground truth of the index's live points), per_shard recall at
+              least global's; QPS of both modes and of the single index,
+              the view's bytes, the search's peak device memory and its
+              device time by operation (torch.profiler).  At
+              full probe (4,096 queries, without and with pruning 1.2) the
+              ids equal the single index's, and 1,000 queries' ids those of
+              the same shards on the CPU (plain versions), each up to f64
+              ties (sharded_ties).  Then 10,000 inserts in 512-batches, each
+              then searched, and 2,000 deletes through live's SpFreshIndex
+              (its store deleted after): the view refreshes in place
+              (appends and slab rewrites, no full repack), and its ids equal
+              a freshly packed ShardedSpannIndex's up to f64 ties, with no
+              deleted id, while the single-device view did not refresh
+              (both count under view.*).  Last, live's int8 index in 4
+              shards: the quantized rerank per shard, recall within 0.002
+              of the single index at nprobe 8, and 1,000 queries' ids equal
+              to the same shards on the CPU up to f64 ties on the
+              dequantized rows, with the distances of rows of equal ids
+              within RERANK_RTOL.
+8. large    — the same generator at 4,194,304 x 128 (4,194 centers) with
               int8 (IVF-SQ8) storage: more than 32,768 clusters, so stage 1
               takes the windowed centroid scan and the rerank its quantized
               path; ground truth, the nprobe sweep to recall@10 >= 0.80
@@ -91,17 +116,17 @@ Phases, each printing a line:
               index is then saved packed and searched lazily on the card
               (window scan and quantized rerank launched, recall within
               0.01 of the in-memory search, 1,000 queries against the CPU).
-8. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
+9. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
               d 960, 16,384 queries, seed 12345), a Manhattan bf16 build:
               the L1/Linf pairwise kernel runs the build's assignments,
               the closure pass, stage 1 and the ground truth; the sweep
               to recall@10 >= 0.90, the bf16 rerank against its plain
               version on the phase's slabs (d_pad 1,024) and stage-1 rows,
               and the device-time breakdown.
-9. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
+10. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
               sweep is printed (no target: Chebyshev plateaus on this data)
               and the rerank checked on the phase's slabs at nprobe 48.
-10. outofcore — benchmarks/outofcore_build_bench.py's corpus (8,388,608 x 96,
+11. outofcore — benchmarks/outofcore_build_bench.py's corpus (8,388,608 x 96,
               a memmap under build/) built out-of-core through
               Config.build_sample_rows (sample 1,048,576, tile 262,144, cap
               256, bf16): one nearest-centroid launch per tile, the replica
@@ -116,7 +141,7 @@ Phases, each printing a line:
               window scan and float rerank launched, recall within 0.01 of
               the in-memory search, 1,000 queries against the CPU, peak
               device memory under an eighth of the view's slab bytes.
-11. exact   — a 20k f32 index: full-probe search must have recall exactly 1.0
+12. exact   — a 20k f32 index: full-probe search must have recall exactly 1.0
               (Euclidean; Manhattan and Chebyshev at d 960, where a miss is
               allowed only as a tie, shown in f64).
 
@@ -1111,9 +1136,12 @@ def live_counts(metrics) -> dict:
 
 
 def phase_live(torch, index, data, queries, gt, nprobe: int, updates: int = 20_000,
-               hot_n: int = 4096, int8_n: int = 262_144) -> None:
+               hot_n: int = 4096, int8_n: int = 262_144):
     """Live updates on main's bf16 index through SpFreshIndex, the gates,
-    then the int8 repack gate on a 262,144-row index."""
+    then the int8 repack gate on a 262,144-row index.  Returns ((the
+    SpFreshIndex, its store), (that int8 index, its queries)): the sharded
+    phase takes its updates through the SpFreshIndex, whose pipeline is
+    stopped, and closes and deletes it."""
     import shutil
     from pathlib import Path
 
@@ -1127,6 +1155,7 @@ def phase_live(torch, index, data, queries, gt, nprobe: int, updates: int = 20_0
     shutil.rmtree(store, ignore_errors=True)
     n, batch = len(data), 512
     failures = []
+    fresh = None
     try:
         metrics.DEFAULT.reset()
         rerank.launches = 0
@@ -1234,11 +1263,14 @@ def phase_live(torch, index, data, queries, gt, nprobe: int, updates: int = 20_0
         if differ:
             failures.append(f"(a) {differ} ids differ from the full repack")
         log(f"live: bf16 rerank launches in the phase: {rerank.launches}")
-        fresh.close()
-    finally:
+        int8 = live_int8(torch, store.with_name(LIVE_STORE + "_int8"), failures, int8_n)
+        assert not failures, f"live gates failed: {failures}"
+    except BaseException:
+        if fresh is not None:
+            fresh.close()
         shutil.rmtree(store, ignore_errors=True)
-    live_int8(torch, store, failures, int8_n)
-    assert not failures, f"live gates failed: {failures}"
+        raise
+    return (fresh, store), int8
 
 
 def visibility_ties(fresh, vecs, vids, nprobe: int) -> int:
@@ -1263,9 +1295,10 @@ def visibility_ties(fresh, vecs, vids, nprobe: int) -> int:
     return ties
 
 
-def live_int8(torch, store, failures, n: int) -> None:
+def live_int8(torch, store, failures, n: int):
     """5,000 inserts and 2,000 deletes on a 262,144-row int8 index (the
-    int8 append path and its scale guard), then the repack gate."""
+    int8 append path and its scale guard), then the repack gate.  Returns
+    (the index, its queries)."""
     import shutil
 
     from spfresh_tpu_torch.index import Config
@@ -1307,6 +1340,294 @@ def live_int8(torch, store, failures, n: int) -> None:
         fresh.close()
     finally:
         shutil.rmtree(store, ignore_errors=True)
+    return index, queries
+
+
+def live_vectors(index):
+    """(ids, vectors) of every point an index holds, each once: the corpus
+    its exact ground truth is taken over after live updates."""
+    ids = np.concatenate([p[0] for p in index.postings.values()])
+    vecs = np.concatenate([np.asarray(p[1], np.float32) for p in index.postings.values()])
+    ids, first = np.unique(ids, return_index=True)
+    return ids, vecs[first]
+
+
+def sharded_ties(index, queries, a, b, nprobe: int, tag: str, prune=None) -> int:
+    """Rows where the ids ``a`` and ``b`` of two searches of one bf16 or
+    int8 index differ, less those an f64 tie explains: every id in one row
+    and not the other is a rank tie (its f64 distance from the f32 query to
+    the row its slab holds, within TIE_TOL of the row's 10th: bf16, the
+    bf16-rounded vector; int8, the dequantized c + code * s with the
+    posting's scale taken from all its residuals, as a pack takes it), a
+    routing tie (a posting holding it has its centroid within TIE_TOL of
+    the nprobe-th nearest, in f64 as stage 1 takes both: bf16-rounded for
+    bf16, f32 for int8) or, with pruning, a threshold tie (within TIE_TOL
+    of prune * (nearest centroid + eps)).  Returns the rows left
+    unexplained."""
+    from spfresh_tpu_torch.core.dtypes import quant_scale_for, quantize_np
+
+    rows = np.flatnonzero((a != b).any(axis=1))
+    if not len(rows):
+        return 0
+    quant = index.policy.quantized
+    route = (lambda x: np.asarray(x, np.float64)) if quant else bf16_f64
+
+    def stored(c, j) -> np.ndarray:
+        if not quant:
+            return bf16_f64(np.asarray(index.postings[c][1][j], np.float32))
+        res = np.asarray(index.postings[c][1], np.float32) - index.centroids[c][None, :]
+        s = quant_scale_for(res)
+        return index.centroids[c].astype(np.float64) + quantize_np(res[j], s).astype(
+            np.float64) * s
+
+    cids = np.array(sorted(index.postings))
+    C = route(np.stack([index.centroids[c] for c in cids]))
+    all_ids = np.concatenate([index.postings[c][0] for c in cids])
+    owner = np.repeat(np.arange(len(cids)), [len(index.postings[c][0]) for c in cids])
+    at = np.concatenate([np.arange(len(index.postings[c][0])) for c in cids])
+    order = np.argsort(all_ids, kind="stable")
+    sids = all_ids[order]
+
+    def homes(i):
+        lo, hi = np.searchsorted(sids, i), np.searchsorted(sids, i, side="right")
+        return order[lo:hi]
+
+    bad = 0
+    for r in rows:
+        q = queries[r].astype(np.float64)
+        Dc = ((C - route(queries[r])) ** 2).sum(1)
+        kth_c = np.partition(Dc, min(nprobe, len(Dc)) - 1)[min(nprobe, len(Dc)) - 1]
+        both = [int(i) for i in set(a[r].tolist()) | set(b[r].tolist()) if i >= 0]
+        dist = {}
+        for i in both:
+            j = homes(i)[0]
+            dist[i] = float(((stored(cids[owner[j]], at[j]) - q) ** 2).sum())
+        kth = max(max((dist[int(i)] for i in row if i >= 0), default=0.0) for row in (a[r], b[r]))
+        thr = (None if prune is None
+               else float(prune) * (float(Dc.min()) + float(np.finfo(np.float32).eps)))
+        notes, bad_row = [], False
+        for i in sorted(set(a[r].tolist()) ^ set(b[r].tolist()) - {-1}):
+            home_d = [float(Dc[owner[j]]) for j in homes(i)]
+            rank_tie = abs(dist[i] - kth) <= TIE_TOL * max(kth, 1e-12)
+            route_tie = any(abs(h - kth_c) <= TIE_TOL * max(kth_c, 1e-12) for h in home_d)
+            thr_tie = thr is not None and abs(dist[i] - thr) <= TIE_TOL * max(thr, 1e-12)
+            notes.append((i, round(dist[i], 6), rank_tie, route_tie, thr_tie))
+            bad_row = bad_row or not (rank_tie or route_tie or thr_tie)
+        bad += int(bad_row)
+        if r in rows[:8] or bad_row:
+            log(f"{tag}: query {r}: 10th f64 distance {kth:.6f}, {nprobe}-th centroid "
+                f"{kth_c:.6f}; (id, f64 distance, rank tie, routing tie, threshold tie) {notes}")
+    return bad
+
+
+def phase_sharded(torch, index, data, queries, gt, nprobe: int, live, int8, smi: str) -> dict:
+    """Multi-device serving: main's index as live left it in a
+    ShardedSpannIndex, S = 4 shards on cuda:0 when the card is alone (one
+    a card otherwise), then updates through live's SpFreshIndex (closed
+    and its store deleted after) refreshing the sharded view in place,
+    then live's int8 index in 4 shards.  Returns the rerank launches of
+    the phase's global-mode searches, per report entry."""
+    import shutil
+
+    fresh, store = live
+    try:
+        return sharded_gates(torch, index, data, queries, nprobe, fresh, int8, smi)
+    finally:
+        fresh.close()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def sharded_gates(torch, index, data, queries, nprobe: int, fresh, int8, smi: str) -> dict:
+    import types
+
+    from spfresh_tpu_torch.eval import recall_at_k
+    from spfresh_tpu_torch.index import brute_force_search
+    from spfresh_tpu_torch.ops import rerank
+    from spfresh_tpu_torch.parallel import ShardedSpannIndex
+    from spfresh_tpu_torch.utils import metrics
+
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(count)] if count > 1 else ["cuda:0"] * 4
+    S, bs, failures = len(devices), 8192, []
+    log(f"sharded: S={S} shards on {devices} ({smi})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = ShardedSpannIndex(index, devices)
+    view = sharded.padded_view()
+    torch.cuda.synchronize()
+    single = index.padded_view()
+    single_mib = sum(t.nbytes for t in (single.centroids, single.cent_valid, single.lens,
+                                        single.ids2d, single.vectors3d, single.scales)) / 2**20
+    log(f"sharded: view packed in {time.perf_counter() - t0:.2f} s: {S} x "
+        f"{tuple(view.shards[0].vectors3d.shape)} {view.shards[0].vectors3d.dtype}, "
+        f"{view.nbytes / 2**20:.1f} MiB on the card (the single-device view "
+        f"{tuple(single.vectors3d.shape)}: {single_mib:.1f} MiB); postings per shard "
+        f"{[len(f) for f in view.free_rows]} free rows, "
+        f"{[sum(1 for s, _ in view.cluster_rows.values() if s == k) for k in range(S)]} held")
+    ids_all, vec_all = live_vectors(index)
+    t0 = time.perf_counter()
+    _, gt_rows = brute_force_search(vec_all, queries, 10, device=DEVICE, batch_size=4096)
+    gt = ids_all[gt_rows]
+    log(f"sharded: exact ground truth of the index as live left it ({len(ids_all)} points) "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    # Global nprobe at main's recall point against the single index.
+    launches = {}
+    metrics.DEFAULT.reset()
+    rerank.launches = 0
+    g_ids, _ = sharded.search(queries, 10, nprobe=nprobe, batch_size=bs, nprobe_mode="global")
+    torch.cuda.synchronize()
+    launches["rerank"] = rerank.launches
+    engines = {k: int(v) for k, v in metrics.snapshot().items() if k.startswith("search.engine")}
+    batches = -(-len(queries) // bs)
+    log(f"sharded: global nprobe={nprobe}, {len(queries)} queries in {batches} batches: rerank "
+        f"launches {launches['rerank']} (S x batches = {S * batches}); engines {engines}")
+    if launches["rerank"] != S * batches or engines.get("search.engine.cuda", 0) != 1:
+        failures.append("the rerank did not launch once per shard and batch on the card")
+    assert_no_duplicates(g_ids)
+    one_ids, _ = index.search(queries, 10, nprobe=nprobe)
+    rec_g, rec_1 = recall_at_k(g_ids, gt, 10), recall_at_k(one_ids, gt, 10)
+    log(f"sharded: recall@10 global {rec_g:.4f}, single index {rec_1:.4f} (delta "
+        f"{rec_g - rec_1:+.4f}, gate 0.002); ids at the same place "
+        f"{float((g_ids == one_ids).mean()):.4f}, rows equal "
+        f"{float((g_ids == one_ids).all(axis=1).mean()):.4f}")
+    if abs(rec_g - rec_1) > 0.002:
+        failures.append(f"global recall {rec_g:.4f} vs single {rec_1:.4f}")
+    p_ids, _ = sharded.search(queries, 10, nprobe=nprobe, batch_size=bs)
+    rec_p = recall_at_k(p_ids, gt, 10)
+    log(f"sharded: recall@10 per_shard {rec_p:.4f} at nprobe={nprobe} ({S * nprobe} lists "
+        f"probed), global {rec_g:.4f}")
+    if rec_p < rec_g:
+        failures.append(f"per_shard recall {rec_p:.4f} < global {rec_g:.4f}")
+    # best_qps and profile_search call search(queries, k, nprobe=...).
+    glob = types.SimpleNamespace(search=lambda q, k, nprobe: sharded.search(
+        q, k, nprobe=nprobe, batch_size=bs, nprobe_mode="global"))
+    per = types.SimpleNamespace(search=lambda q, k, nprobe: sharded.search(
+        q, k, nprobe=nprobe, batch_size=bs))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    qps_g = best_qps(torch, glob, queries, nprobe)
+    peak = torch.cuda.max_memory_allocated()
+    qps_p = best_qps(torch, per, queries, nprobe)
+    qps_1 = best_qps(torch, index, queries, nprobe)
+    log(f"sharded: QPS at nprobe={nprobe} (best of 3, {len(queries)} queries, batch {bs}): "
+        f"global {qps_g:.1f}, per_shard {qps_p:.1f}, single index {qps_1:.1f} "
+        f"(global / single {qps_g / qps_1:.3f}); peak device memory of the global search "
+        f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**20:.1f} MiB above its start); {smi}")
+    profile_search(torch, glob, queries, nprobe, tag="profile sharded")
+
+    # Full probe (every list), without and with pruning, on 4,096 queries.
+    C, qf = index.num_clusters, queries[:4096]
+    for prune in (None, 1.2):
+        t0 = time.perf_counter()
+        a, _ = sharded.search(qf, 10, nprobe=C, prune_factor=prune, batch_size=bs,
+                              nprobe_mode="global")
+        t_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b, _ = index.search(qf, 10, nprobe=C, prune_factor=prune)
+        t_1 = time.perf_counter() - t0
+        assert_no_duplicates(a)
+        bad = sharded_ties(index, qf, a, b, C, f"sharded full probe prune={prune}", prune)
+        log(f"sharded: full probe (nprobe={C}) prune={prune}, {len(qf)} queries: "
+            f"{int((a != b).sum())} of {a.size} ids differ from the single index, "
+            f"{bad} rows not f64 ties ({t_s:.2f} s sharded, {t_1:.2f} s single)")
+        if bad:
+            failures.append(f"full probe prune={prune}: {bad} rows differ beyond ties")
+
+    # The same shards on the CPU, with the plain versions.
+    t0 = time.perf_counter()
+    cpu = ShardedSpannIndex(index, ["cpu"] * S)
+    want, _ = cpu.search(queries[:1000], 10, nprobe=nprobe, nprobe_mode="global")
+    del cpu
+    bad = sharded_ties(index, queries[:1000], g_ids[:1000], want, nprobe, "sharded cpu")
+    log(f"sharded: ids of 1,000 queries vs {S} shards on the CPU (plain versions, "
+        f"{time.perf_counter() - t0:.1f} s): {int((g_ids[:1000] != want).sum())} of "
+        f"{want.size} differ, {bad} rows not f64 ties")
+    if bad:
+        failures.append(f"{bad} rows differ from the CPU beyond ties")
+
+    # Updates through live's SpFreshIndex: the sharded view refreshes in place.
+    fresh.pipeline.start()
+    metrics.DEFAULT.reset()
+    single_gen = index._padded_gen  # the single-device view must not refresh below
+    ins = mixture_more(12345, len(data), 10_000, 6)
+    ins_ids = np.arange(int(ids_all.max()) + 1, int(ids_all.max()) + 1 + len(ins))
+    t0 = time.perf_counter()
+    for s in range(0, len(ins), 512):
+        fresh.insert_batch(ins[s : s + 512], ins_ids[s : s + 512])
+        sharded.search(queries[:64], 10, nprobe=nprobe, nprobe_mode="global")
+    dels = np.random.default_rng(7).choice(ids_all, size=2000, replace=False)
+    deleted = fresh.delete_batch(dels)
+    fresh.flush()
+    fresh.pipeline.stop()  # freeze the index for the comparison below
+    inc, _ = sharded.search(queries, 10, nprobe=nprobe, batch_size=bs, nprobe_mode="global")
+    torch.cuda.synchronize()
+    counts = {k: int(v) for k, v in metrics.snapshot().items() if k.startswith(("view.", "lire."))}
+    log(f"sharded: {len(ins)} inserts (512-batches, each then searched) and {deleted} of "
+        f"{len(dels)} deletes through live's SpFreshIndex in {time.perf_counter() - t0:.2f} s; "
+        f"counts {counts}")
+    if not (counts.get("view.append_updates", 0) > 0
+            and counts.get("view.rows_scattered", 0) > 0):
+        failures.append("the sharded view took no append or no slab rewrite")
+    if counts.get("view.full_repacks", 0):
+        failures.append("the sharded view repacked in full")
+    # Both views count under view.*: the counts are the sharded view's only
+    # if the single-device view did not refresh in the window.
+    if index._padded_gen != single_gen:
+        failures.append("the single-device view refreshed during the sharded updates")
+    t0 = time.perf_counter()
+    rebuilt = ShardedSpannIndex(index, devices)
+    new, _ = rebuilt.search(queries, 10, nprobe=nprobe, batch_size=bs, nprobe_mode="global")
+    del rebuilt
+    bad = sharded_ties(index, queries, inc, new, nprobe, "sharded updates")
+    log(f"sharded: in-place view vs a freshly built ShardedSpannIndex of the mutated index "
+        f"({time.perf_counter() - t0:.2f} s): {int((inc != new).sum())} of {inc.size} ids "
+        f"differ, {bad} rows not f64 ties; deleted ids returned {int(np.isin(inc, dels).sum())}")
+    if bad or np.isin(inc, dels).any():
+        failures.append(f"in-place view: {bad} rows differ from a fresh pack beyond ties, "
+                        "or a deleted id was returned")
+    del sharded, view
+
+    # live's int8 index in 4 shards: the quantized rerank per shard.
+    idx8, q8 = int8
+    sh8 = ShardedSpannIndex(idx8, devices)
+    ids8, vec8 = live_vectors(idx8)
+    _, gt8 = brute_force_search(vec8, q8, 10, device=DEVICE, batch_size=4096)
+    gt8 = ids8[gt8]
+    rerank.quantized_launches = 0
+    a8, d8 = sh8.search(q8, 10, nprobe=8, batch_size=bs, nprobe_mode="global")
+    torch.cuda.synchronize()
+    launches["rerank_int8"] = rerank.quantized_launches
+    b8, _ = idx8.search(q8, 10, nprobe=8)
+    r_s, r_1 = recall_at_k(a8, gt8, 10), recall_at_k(b8, gt8, 10)
+    log(f"sharded int8: {S} x {tuple(sh8.padded_view().shards[0].vectors3d.shape)}; global "
+        f"nprobe=8 recall@10 {r_s:.4f}, single index {r_1:.4f} (delta {r_s - r_1:+.4f}); ids "
+        f"at the same place {float((a8 == b8).mean()):.4f}; quantized rerank launches "
+        f"{launches['rerank_int8']} (S x batches = {S * -(-len(q8) // bs)})")
+    assert_no_duplicates(a8)
+    if abs(r_s - r_1) > 0.002 or launches["rerank_int8"] != S * -(-len(q8) // bs):
+        failures.append("int8: recall parity or the quantized launches")
+    # The same int8 shards on the CPU, with the plain versions: ids equal up
+    # to f64 ties on the dequantized rows, and where a row's ids are equal,
+    # its distances within RERANK_RTOL.
+    t0 = time.perf_counter()
+    cpu8 = ShardedSpannIndex(idx8, ["cpu"] * S)
+    want8, wd8 = cpu8.search(q8[:1000], 10, nprobe=8, nprobe_mode="global")
+    del cpu8
+    bad8 = sharded_ties(idx8, q8[:1000], a8[:1000], want8, 8, "sharded int8 cpu")
+    same = (a8[:1000] == want8).all(axis=1)
+    err = np.abs(d8[:1000][same] - wd8[same]) / np.maximum(np.abs(wd8[same]), 1e-30)
+    off = int((err > RERANK_RTOL).any(axis=1).sum())
+    log(f"sharded int8: ids of 1,000 queries vs {S} shards on the CPU (plain versions, "
+        f"{time.perf_counter() - t0:.1f} s): {int((a8[:1000] != want8).sum())} of "
+        f"{want8.size} differ, {bad8} rows not f64 ties; rows of equal ids with a distance "
+        f"past RERANK_RTOL {off} (largest relative error {float(err.max(initial=0.0)):.3g})")
+    if bad8 or off:
+        failures.append(f"int8: {bad8} rows differ from the CPU beyond ties, {off} rows' "
+                        "distances past RERANK_RTOL")
+    assert not failures, f"sharded gates failed: {failures}"
+    return launches
 
 
 def disk_log(msg: str) -> None:
@@ -2395,13 +2716,15 @@ def main() -> int:
     assert not torch.backends.cuda.matmul.allow_tf32, "plain versions must not run in TF32"
     report = {}
     main_state = {}
+    sharded_launches = {}  # the sharded phase's, added to the report at the end
     runs = {
         "kernels": lambda: phase_kernels(torch, report),
         "main": lambda: main_state.update(zip(
             ("index", "data", "queries", "gt", "nprobe"),
             phase_main(torch, 1_000_000, 16_384, report))),
         "disk": lambda: phase_disk(torch, **main_state),
-        "live": lambda: phase_live(torch, **main_state),
+        "live": lambda: main_state.update(zip(("live", "int8"), phase_live(torch, **main_state))),
+        "sharded": lambda: sharded_launches.update(phase_sharded(torch, **main_state, smi=smi)),
         "large": lambda: phase_large(torch, LARGE_N, 16_384, report),
         "manhattan": lambda: phase_metric(torch, "Manhattan", 1_000_000, 16_384, report, 0.90),
         "chebyshev": lambda: phase_metric(torch, "Chebyshev", 262_144, 16_384, report, None),
@@ -2411,10 +2734,12 @@ def main() -> int:
     for name, run in runs.items():
         t0 = time.perf_counter()
         run()
-        if name == "live":
+        if name == "sharded":
             main_state.clear()  # release main's index before the large phase
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
+    for name, c in sharded_launches.items():
+        report[name]["launches"] += c
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

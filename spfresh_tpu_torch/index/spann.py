@@ -126,46 +126,60 @@ def _probe_block(queries, view: "PaddedView", rows, cent_d, metric: str, thr):
     return d, cand_ids
 
 
+def _prune_threshold(nearest, prune_factor: Optional[float]):
+    """Reference-style query-aware pruning: keep the candidates within
+    ``prune_factor * (nearest-centroid distance + eps)``, per query
+    (``nearest`` (Q,)); None without pruning."""
+    if prune_factor is None:
+        return None
+    return float(np.float32(prune_factor)) * (nearest + _F32_EPS)
+
+
+def _probe_candidates(queries, view: "PaddedView", rows, cent_d, *, k: int, metric: str, thr):
+    """Distances and ids (Q, n) of the candidates of the probed slabs
+    ``rows`` (Q, nprobe) (``_probe_block``), in probe-major order.
+
+    When the candidate block of all nprobe probes would pass
+    ``PROBE_CHUNK_BYTES``, the probes are taken ``probe_chunk`` at a time
+    and each chunk is folded into a running tie-stable top-kk per query,
+    kk = max(k, min(k * max_dup, nprobe * pad)), as the reference's
+    ``_search_kernel_probe_chunked`` does.  The kept candidates precede
+    the chunk's and hold the lowest columns among equal values, so the
+    running set is the unchunked block's top-kk in its order, and a dedup
+    top-k of it (the k-th distinct id lies within rank k * max_dup)
+    returns the same ids as of the whole block."""
+    Q, nprobe = rows.shape
+    pad = view.pad
+    per_probe = Q * (pad * _CAND_BYTES
+                     + (view.d_pad * 4 if view.vectors3d.dtype == torch.int8 else 0))
+    probe_chunk = max(1, PROBE_CHUNK_BYTES // max(1, per_probe))
+    if probe_chunk >= nprobe:
+        d, cand_ids = _probe_block(queries, view, rows, cent_d, metric, thr)
+        return d.reshape(Q, nprobe * pad), cand_ids.reshape(Q, nprobe * pad)
+    kk = max(k, min(k * view.max_dup, nprobe * pad))
+    d = torch.full((Q, kk), float("inf"), device=queries.device)
+    cand_ids = torch.full((Q, kk), -1, dtype=view.ids2d.dtype, device=queries.device)
+    for s in range(0, nprobe, probe_chunk):
+        cd, ci = _probe_block(queries, view, rows[:, s : s + probe_chunk],
+                              cent_d[:, s : s + probe_chunk], metric, thr)
+        d, idx = smallest_k(torch.cat([d, cd.reshape(Q, -1)], dim=1), kk)
+        cand_ids = torch.gather(torch.cat([cand_ids, ci.reshape(Q, -1)], dim=1), 1, idx)
+    return d, cand_ids
+
+
 def _search_padded(queries, view: "PaddedView", *, k: int, nprobe: int, metric: str,
                    prune_factor: Optional[float]):
     """probe -> slab rerank -> masked dedup top-k for one query batch.
 
     queries (Q, d_pad) f32 on the view's device.  Stage 1 rounds the queries
     to the centroid dtype, as the reference does; the rerank uses the f32
-    queries.  When the candidate block of all nprobe probes would pass
-    ``PROBE_CHUNK_BYTES``, the probes are taken ``probe_chunk`` at a time
-    and each chunk is folded into a running tie-stable top-kk per query,
-    kk = max(k, min(k * max_dup, nprobe * pad)), as the reference's
-    ``_search_kernel_probe_chunked`` does.  The kept candidates precede
-    the chunk's and hold the lowest columns among equal values, so the
-    running set is the unchunked search's top-kk in its order, and the
-    dedup top-k (the k-th distinct id lies within rank k * max_dup)
-    returns the same ids.  Pruning keeps the first probe's threshold.
+    queries.  Past ``PROBE_CHUNK_BYTES`` the probes are taken in chunks
+    (``_probe_candidates``); pruning keeps the first probe's threshold.
     Returns (ids (Q, k) int32 [-1 = no hit], dists (Q, k) f32)."""
-    Q = queries.shape[0]
-    pad = view.pad
     qf = queries.to(view.centroids.dtype)
     cent_d, rows = centroid_topk(qf, view.centroids, view.cent_valid, nprobe, metric)
-    thr = None
-    if prune_factor is not None:
-        # Reference-style query-aware pruning: keep points within
-        # prune_factor * (nearest-centroid distance + eps).
-        thr = float(np.float32(prune_factor)) * (cent_d[:, 0] + _F32_EPS)
-    per_probe = Q * (pad * _CAND_BYTES
-                     + (view.d_pad * 4 if view.vectors3d.dtype == torch.int8 else 0))
-    probe_chunk = max(1, PROBE_CHUNK_BYTES // max(1, per_probe))
-    if probe_chunk >= nprobe:
-        d, cand_ids = _probe_block(queries, view, rows, cent_d, metric, thr)
-        d, cand_ids = d.reshape(Q, nprobe * pad), cand_ids.reshape(Q, nprobe * pad)
-    else:
-        kk = max(k, min(k * view.max_dup, nprobe * pad))
-        d = torch.full((Q, kk), float("inf"), device=queries.device)
-        cand_ids = torch.full((Q, kk), -1, dtype=view.ids2d.dtype, device=queries.device)
-        for s in range(0, nprobe, probe_chunk):
-            cd, ci = _probe_block(queries, view, rows[:, s : s + probe_chunk],
-                                  cent_d[:, s : s + probe_chunk], metric, thr)
-            d, idx = smallest_k(torch.cat([d, cd.reshape(Q, -1)], dim=1), kk)
-            cand_ids = torch.gather(torch.cat([cand_ids, ci.reshape(Q, -1)], dim=1), 1, idx)
+    thr = _prune_threshold(cent_d[:, 0], prune_factor)
+    d, cand_ids = _probe_candidates(queries, view, rows, cent_d, k=k, metric=metric, thr=thr)
     vals, out_ids = smallest_k_unique(d, cand_ids, k, max_dup=view.max_dup)
     out_ids = torch.where(torch.isfinite(vals), out_ids, torch.full_like(out_ids, -1))
     return out_ids, vals
@@ -318,6 +332,31 @@ class PaddedView:
     scales_host: Optional[np.ndarray] = None
 
 
+@dataclasses.dataclass
+class _ViewPlan:
+    """What one in-place refresh writes into a slab view
+    (``SpannIndex._plan_view_updates``).  A location is a row of the
+    single-device view, or a (shard, row) pair of the sharded one."""
+
+    appends: list = dataclasses.field(default_factory=list)  # [(loc, old_len, add_ids, add_vecs f32, centroid)]
+    rewrites: list = dataclasses.field(default_factory=list)  # [(cid, loc, (ids, vecs) or None, centroid)]
+    grown: list = dataclasses.field(default_factory=list)  # [(cid, ids)]: the appends' new snapshots
+
+    def commit(self, view, release) -> None:
+        """Record the written plan in ``view``'s ``cluster_rows`` and
+        ``snapshot``; ``release(loc)`` frees the row of a removed posting."""
+        for c, ids in self.grown:
+            view.snapshot[c] = ids
+        for c, loc, posting, _ in self.rewrites:
+            if posting is not None:
+                view.cluster_rows[c] = loc
+                view.snapshot[c] = posting[0]
+            else:
+                view.cluster_rows.pop(c, None)
+                view.snapshot.pop(c, None)
+                release(loc)
+
+
 class _LazyMemberVecs:
     """Posting member vectors materialized on first touch from the build
     corpus (``corpus[ids]``): a fresh build packs its slabs from the device
@@ -377,12 +416,11 @@ class SpannIndex:
         self._dirty_padded: Optional[set] = set()
         # cid -> gen of its last mutation / centroid change, and the gen of
         # the last bulk load (the JAX package's journal for external views).
+        # A posting whose centroid changed after a view's gen is rewritten
+        # there, never appended to.
         self._mutated_gen: Dict[int, int] = {}
         self._centroid_gen: Dict[int, int] = {}
         self._bulk_gen = 0
-        # Dirty cids whose centroid changed: their slabs are rewritten, never
-        # appended to.
-        self._dirty_centroid: set = set()
         # (gen, all_ids, all_vecs) from a bulk load, for the first view pack.
         self._flat_cache = None
         # (gen, device corpus) from the build, for the on-device slab pack.
@@ -400,11 +438,13 @@ class SpannIndex:
         # multiplicity for a moment.
         return _next_pow2(self._mult_hint + 1)
 
-    def _mark_dirty(self, cluster_id: int) -> None:
+    def _mark_dirty(self, cluster_id: int, centroid: bool = False) -> None:
+        """Journal a mutation of ``cluster_id``; ``centroid``: its centroid
+        changed too."""
         self._gen += 1
         self._corpus_cache = None  # release the build corpus on the device
         self._mutated_gen[cluster_id] = self._gen
-        if cluster_id in self._dirty_centroid:
+        if centroid:
             self._centroid_gen[cluster_id] = self._gen
         if self._dirty_padded is not None:
             self._dirty_padded.add(cluster_id)
@@ -461,28 +501,26 @@ class SpannIndex:
             self.dim = vectors.shape[1]
         self.postings[cid] = (np.asarray(ids, np.int64), vectors)
         self.centroids[cid] = np.asarray(centroid, np.float32)
-        self._dirty_centroid.add(cid)
-        self._mark_dirty(cid)
+        self._mark_dirty(cid, centroid=True)
         return cid
 
     def remove_cluster(self, cluster_id: int) -> None:
         self.postings.pop(cluster_id, None)
         self.centroids.pop(cluster_id, None)
-        self._dirty_centroid.add(cluster_id)
-        self._mark_dirty(cluster_id)
+        self._mark_dirty(cluster_id, centroid=True)
 
     def replace_posting(self, cluster_id: int, ids: np.ndarray, vectors: np.ndarray,
                         centroid: Optional[np.ndarray] = None) -> None:
         self.postings[cluster_id] = (np.asarray(ids, np.int64),
                                      self._as_posting_vecs(ids, vectors))
+        moved = False
         if centroid is not None:
             centroid = np.asarray(centroid, np.float32)
             # Only a real centroid change rules out the append path (mirror
             # syncs pass the unchanged centroid every time).
-            if not np.array_equal(self.centroids.get(cluster_id), centroid):
-                self._dirty_centroid.add(cluster_id)
+            moved = not np.array_equal(self.centroids.get(cluster_id), centroid)
             self.centroids[cluster_id] = centroid
-        self._mark_dirty(cluster_id)
+        self._mark_dirty(cluster_id, centroid=moved)
 
     def drop_device_views(self) -> None:
         """Release the device view and the build caches; the host posting
@@ -585,14 +623,14 @@ class SpannIndex:
         )
         self._padded_gen = self._gen
         self._dirty_padded = set()
-        self._dirty_centroid = set()
         # The view is the only consumer of the build caches; release the
         # device corpus they hold.
         self._flat_cache = None
         self._corpus_cache = None
         return self._padded_view
 
-    def _append_scale_ok(self, view: PaddedView, row: int, c: int, vecs, old_len: int) -> bool:
+    def _append_scale_ok(self, view: PaddedView, row: int, centroid: np.ndarray, vecs,
+                         old_len: int) -> bool:
         """int8 append admission: appended members quantize with the slab's
         existing scale, which is exact only while a full pack would keep
         that scale, i.e. the appended residuals stay within the slab's
@@ -604,7 +642,7 @@ class SpannIndex:
         s_old = float(self._view_scales_host(view)[row])
         if s_old == 1.0:
             return False
-        res = np.asarray(vecs, np.float32)[old_len:] - self.centroids[c][None, :]
+        res = np.asarray(vecs, np.float32)[old_len:] - centroid[None, :]
         new_max = np.float32(np.max(np.abs(res), initial=0.0))
         return float(posting_scales_np(np.array([new_max]))[0]) <= s_old
 
@@ -614,110 +652,130 @@ class SpannIndex:
             view.scales_host = view.scales.cpu().numpy().copy()
         return view.scales_host
 
-    def _apply_padded_updates(self) -> bool:
-        """Write the dirty postings into the live view's tensors, in two
-        tiers:
+    def _plan_view_updates(self, view, dirty, view_gen: int, take_row,
+                           scale_ok) -> Optional[_ViewPlan]:
+        """Sort the ``dirty`` postings into a view's two update tiers, for
+        the single-device view and the sharded one alike:
 
-        * **append** — a posting whose previous ids are a prefix of its new
-          ids (streaming inserts) writes only its appended member rows;
+        * **append** — a posting whose ids at the last refresh are a prefix
+          of its ids now (streaming inserts), with its centroid unchanged
+          since ``view_gen`` and, for int8, ``scale_ok(loc, centroid, vecs,
+          old_len)``, writes only its appended member rows;
         * **slab rewrite** — anything else (deletes, reassigns, new or
           removed postings) writes the posting's whole (pad, d_pad) slab, a
-          new posting into a free row.
+          new posting at the location ``take_row()`` gives.
 
-        Returns False, having changed nothing, when the batch cannot land in
-        place (a posting outgrows its slab, no free row is left, the
-        dimension grew): the caller then packs in full."""
+        ``view`` needs ``pad``, ``cluster_rows`` (cid -> location) and
+        ``snapshot``.  Each posting and centroid is read once, so a mutation
+        racing the plan is taken whole or not at all.  Returns None when the
+        batch cannot land in place (a posting outgrew the slab width, or
+        ``take_row()`` gave None): nothing in the view has changed then."""
+        state = {}  # cid -> ((ids, vecs), centroid), or None once removed
+        for c in dirty:
+            posting, cent = self.postings.get(c), self.centroids.get(c)
+            state[c] = None if posting is None or cent is None else (posting, cent)
+        if any(st is not None and len(st[0][0]) > view.pad for st in state.values()):
+            return None
+        plan = _ViewPlan()
+        for c in sorted(dirty):
+            loc = view.cluster_rows.get(c)
+            if state[c] is None:
+                if loc is not None:
+                    plan.rewrites.append((c, loc, None, None))  # invalidate its row
+                continue  # else: created and removed between refreshes
+            (ids, vecs), cent = state[c]
+            old = view.snapshot.get(c)
+            # An id's coordinates never change (updates mint new ids), so an
+            # id-prefix match certifies the resident slab rows.
+            grown = (loc is not None and old is not None
+                     and self._centroid_gen.get(c, 0) <= view_gen
+                     and len(ids) > len(old) and np.array_equal(ids[: len(old)], old))
+            if grown and scale_ok(loc, cent, vecs, len(old)):
+                plan.appends.append((loc, len(old), ids[len(old):],
+                                     np.asarray(vecs[len(old):], np.float32), cent))
+                plan.grown.append((c, ids))
+                continue
+            if grown:
+                metrics.inc("view.append_scale_demotions")  # int8: past the slab's scale
+            if loc is None:
+                loc = take_row()
+                if loc is None:
+                    return None
+            plan.rewrites.append((c, loc, (ids, vecs), cent))
+        return plan
+
+    def _apply_padded_updates(self) -> bool:
+        """Write the dirty postings into the live view's tensors in place
+        (``_plan_view_updates``).  Returns False, having changed nothing,
+        when the batch cannot land in place (a posting outgrows its slab,
+        no free row is left, the dimension grew): the caller then packs in
+        full."""
         view = self._padded_view
         dirty = self._dirty_padded
         if not dirty:
             return True
-        d = self.dim
-        if d > view.d_pad:
+        if self.dim > view.d_pad:
             return False
-        new_rows = [c for c in dirty if c in self.postings and c not in view.cluster_rows]
-        if len(new_rows) > len(view.free_rows):
-            return False
-        if any(c in self.postings and len(self.postings[c][0]) > view.pad for c in dirty):
-            return False
-
-        appends = []  # (row, old_len, add_ids, add_vecs, centroid)
-        row_of: Dict[int, int] = {}  # slab rewrites
         free = list(view.free_rows)
-        for c in sorted(dirty):
-            if c in self.postings:
-                ids, vecs = self.postings[c]
-                row = view.cluster_rows.get(c, -1)
-                old = view.snapshot.get(c)
-                # An id's coordinates never change (updates mint new ids),
-                # so an id-prefix match certifies the resident slab rows.
-                grown = (row >= 0 and old is not None and c not in self._dirty_centroid
-                         and len(ids) > len(old) and np.array_equal(ids[: len(old)], old))
-                if grown and self._append_scale_ok(view, row, c, vecs, len(old)):
-                    appends.append((row, len(old), ids[len(old):],
-                                    np.asarray(vecs[len(old):], np.float32), self.centroids[c]))
-                    view.snapshot[c] = ids
-                    continue
-                if grown:
-                    metrics.inc("view.append_scale_demotions")  # int8: past the slab's scale
-                if row < 0:
-                    row = free.pop()
-                row_of[c] = row
-            elif c in view.cluster_rows:
-                row_of[c] = view.cluster_rows[c]  # removed: invalidate its row
-            # else: created and removed between refreshes
-
-        dev = self.device
-        sd = self.policy.storage_dtype
-        quant = self.policy.quantized
-        pad, d_pad = view.pad, view.d_pad
-        if appends:
-            B = sum(len(a[2]) for a in appends)
-            slots = np.empty(B, np.int64)
-            vblk = np.zeros((B, d_pad), np.float32)
-            iblk = np.empty(B, np.int32)
-            pos = 0
-            for row, old_len, add_ids, add_vecs, cent_c in appends:
-                k = len(add_ids)
-                slots[pos : pos + k] = row * pad + old_len + np.arange(k)
-                vblk[pos : pos + k, :d] = add_vecs - cent_c[None, :] if quant else add_vecs
-                iblk[pos : pos + k] = _ids_i32(add_ids)
-                pos += k
-            # int8: appended rows quantize with their slab's existing scale.
-            scale = self._view_scales_host(view)[slots // pad][:, None] if quant else 1.0
-            slots_dev = torch.from_numpy(slots).to(dev)
-            view.vectors3d.view(-1, d_pad)[slots_dev] = _cast_storage_np(vblk, sd, scale).to(dev)
-            view.ids2d.view(-1)[slots_dev] = torch.from_numpy(iblk).to(dev)
-            arows = torch.tensor([a[0] for a in appends], dtype=torch.int64)
-            alens = torch.tensor([a[1] + len(a[2]) for a in appends], dtype=torch.int32)
-            view.lens[arows.to(dev)] = alens.to(dev)
+        plan = self._plan_view_updates(
+            view, dirty, self._padded_gen, take_row=lambda: free.pop() if free else None,
+            scale_ok=lambda row, cent, vecs, n: self._append_scale_ok(view, row, cent, vecs, n))
+        if plan is None:
+            return False
+        if plan.appends:
             metrics.inc("view.append_updates")
-            metrics.inc("view.vectors_appended", B)
-
-        if row_of:
-            items = sorted(row_of.items())
-            for s0 in range(0, len(items), _UPDATE_ROWS):
-                self._rewrite_slabs(view, items[s0 : s0 + _UPDATE_ROWS])
-            view.free_rows = free
-            for c, row in row_of.items():
-                if c in self.postings:
-                    view.cluster_rows[c] = row
-                    view.snapshot[c] = self.postings[c][0]
-                else:
-                    view.cluster_rows.pop(c, None)
-                    view.snapshot.pop(c, None)
-                    view.free_rows.append(row)
-            metrics.inc("view.rows_scattered", len(row_of))
-
+            metrics.inc("view.vectors_appended", self._write_appends(view, plan.appends))
+        items = [(row, posting, cent) for _, row, posting, cent in plan.rewrites]
+        for s0 in range(0, len(items), _UPDATE_ROWS):
+            self._rewrite_slabs(view, items[s0 : s0 + _UPDATE_ROWS])
+        if items:
+            metrics.inc("view.rows_scattered", len(items))
+        view.free_rows = free
+        plan.commit(view, free.append)
         view.max_dup = max(view.max_dup, self._dedup_bound())
         metrics.inc("view.incremental_updates")
-        self._dirty_centroid = set()
         return True
 
+    # The two in-place writers, shared with the sharded view
+    # (``parallel/sharded.py``), which calls them once per shard.  Each
+    # writes on the device of the view it is given.
+
+    def _write_appends(self, view: PaddedView, appends) -> int:
+        """Write appended member rows into ``view`` in place: ``appends`` is
+        [(row, old_len, add_ids, add_vecs (k, d) f32, centroid)]; each
+        slab's rows ``old_len:old_len + k`` and its length change.  int8
+        rows quantize with their slab's existing scale.  Returns the
+        number of rows written."""
+        d, pad, d_pad = self.dim, view.pad, view.d_pad
+        quant = self.policy.quantized
+        B = sum(len(a[2]) for a in appends)
+        slots = np.empty(B, np.int64)
+        vblk = np.zeros((B, d_pad), np.float32)
+        iblk = np.empty(B, np.int32)
+        pos = 0
+        for row, old_len, add_ids, add_vecs, cent_c in appends:
+            k = len(add_ids)
+            slots[pos : pos + k] = row * pad + old_len + np.arange(k)
+            vblk[pos : pos + k, :d] = add_vecs - cent_c[None, :] if quant else add_vecs
+            iblk[pos : pos + k] = _ids_i32(add_ids)
+            pos += k
+        scale = self._view_scales_host(view)[slots // pad][:, None] if quant else 1.0
+        dev = view.vectors3d.device
+        slots_dev = torch.from_numpy(slots).to(dev)
+        view.vectors3d.view(-1, d_pad)[slots_dev] = _cast_storage_np(
+            vblk, self.policy.storage_dtype, scale).to(dev)
+        view.ids2d.view(-1)[slots_dev] = torch.from_numpy(iblk).to(dev)
+        arows = torch.tensor([a[0] for a in appends], dtype=torch.int64)
+        alens = torch.tensor([a[1] + len(a[2]) for a in appends], dtype=torch.int32)
+        view.lens[arows.to(dev)] = alens.to(dev)
+        return B
+
     def _rewrite_slabs(self, view: PaddedView, items) -> None:
-        """Write whole slabs, centroids, lengths and scales of the postings
-        ``items`` [(cid, row)] into the view (a removed posting's row is
-        invalidated).  int8 slabs take a fresh scale from their residuals
-        (``quant_scale_for``), as a full pack computes it."""
+        """Write whole slabs, centroids, lengths and scales into ``view``:
+        ``items`` is [(row, (ids, vecs) or None, centroid)], None
+        invalidating the row of a removed posting.  int8 slabs take a
+        fresh scale from their residuals (``quant_scale_for``), as a full
+        pack computes it."""
         d, pad, d_pad = self.dim, view.pad, view.d_pad
         quant = self.policy.quantized
         sd = self.policy.storage_dtype
@@ -729,24 +787,24 @@ class SpannIndex:
         cblk = np.zeros((B, d_pad), np.float32)
         sclblk = np.ones(B, np.float32)
         vldblk = np.zeros(B, bool)
-        for i, (c, row) in enumerate(items):
+        for i, (row, posting, cent) in enumerate(items):
             rows[i] = row
-            if c not in self.postings:
+            if posting is None:
                 continue
-            ids, vecs = self.postings[c]
+            ids, vecs = posting
             m = len(ids)
             vecs = np.asarray(vecs, np.float32)
             if quant:
-                vblk[i, :m, :d] = vecs - self.centroids[c][None, :]
+                vblk[i, :m, :d] = vecs - cent[None, :]
                 if m:
                     sclblk[i] = quant_scale_for(vblk[i, :m, :d])
             else:
                 vblk[i, :m, :d] = vecs
             iblk[i, :m] = _ids_i32(ids)
             lblk[i] = m
-            cblk[i, :d] = self.centroids[c]
+            cblk[i, :d] = cent
             vldblk[i] = True
-        dev = self.device
+        dev = view.vectors3d.device
         r = torch.from_numpy(rows).to(dev)
         view.vectors3d[r] = _cast_storage_np(vblk, sd, sclblk[:, None, None]).to(dev)
         view.ids2d[r] = torch.from_numpy(iblk).to(dev)

@@ -90,10 +90,11 @@ def centroid_window_scan(caug: torch.Tensor, qaug: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty((Q, Cpad // L), dtype=torch.float32, device=caug.device)
-    rc = _build.library().spf_window_scan(
-        caug.data_ptr(), qaug.data_ptr(), out.data_ptr(), Q, Cpad, d_pad, int(bool(bf16_rank)),
-        torch.cuda.current_stream(caug.device).cuda_stream,
-    )
+    with torch.cuda.device(caug.device):  # the library launches on the current device
+        rc = _build.library().spf_window_scan(
+            caug.data_ptr(), qaug.data_ptr(), out.data_ptr(), Q, Cpad, d_pad,
+            int(bool(bf16_rank)), torch.cuda.current_stream(caug.device).cuda_stream,
+        )
     _build.check(rc, "centroid window scan")
     launches += 1
     return out

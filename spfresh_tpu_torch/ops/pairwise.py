@@ -48,11 +48,12 @@ def l1_linf_pairwise(x: torch.Tensor, y: torch.Tensor, metric: str) -> torch.Ten
     if max(n * d, m * d) >= 2**31 or m > 65_535 * 128:
         raise ValueError(f"x {tuple(x.shape)} or y {tuple(y.shape)} exceed the kernel's range")
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
-    rc = _build.library().spf_l1_linf_pairwise(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, d,
-        int(metric == MANHATTAN), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the library launches on the current device
+        rc = _build.library().spf_l1_linf_pairwise(
+            x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, d,
+            int(metric == MANHATTAN), int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _build.check(rc, "L1/Linf pairwise")
     launches += 1
     return out

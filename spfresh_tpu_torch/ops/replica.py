@@ -161,15 +161,15 @@ def replica_topk(X: torch.Tensor, base: torch.Tensor, cents: torch.Tensor, bt: f
     x2 = torch.empty((n,), dtype=torch.float32, device=dev)
     cn2 = torch.empty((C,), dtype=torch.float32, device=dev)
     db_buf = db if db is not None else torch.empty((n,), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    rc = lib.spf_replica_topk(
-        X.data_ptr(), base.data_ptr(), cents.data_ptr(),
-        Cb.data_ptr() if Cb is not None else None,
-        db_buf.data_ptr(), int(db is not None),
-        x2.data_ptr(), cn2.data_ptr(), idx.data_ptr(), rank.data_ptr(),
-        n, C, d, n_extra, float(bt), float(soar_lambda or 0.0), int(bf16),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the library launches on the current device
+        rc = _build.library().spf_replica_topk(
+            X.data_ptr(), base.data_ptr(), cents.data_ptr(),
+            Cb.data_ptr() if Cb is not None else None,
+            db_buf.data_ptr(), int(db is not None),
+            x2.data_ptr(), cn2.data_ptr(), idx.data_ptr(), rank.data_ptr(),
+            n, C, d, n_extra, float(bt), float(soar_lambda or 0.0), int(bf16),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(rc, "replica")
     launches += 1
     return idx, rank
@@ -233,11 +233,12 @@ def nearest_centroid(X: torch.Tensor, cents: torch.Tensor):
     db = torch.empty((n,), dtype=torch.float32, device=dev)
     x2 = torch.empty((n,), dtype=torch.float32, device=dev)
     cn2 = torch.empty((C,), dtype=torch.float32, device=dev)
-    rc = _build.library().spf_nearest_centroid(
-        X.data_ptr(), cents.data_ptr(), x2.data_ptr(), cn2.data_ptr(),
-        base.data_ptr(), db.data_ptr(), n, C, d, int(bf16),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the library launches on the current device
+        rc = _build.library().spf_nearest_centroid(
+            X.data_ptr(), cents.data_ptr(), x2.data_ptr(), cn2.data_ptr(),
+            base.data_ptr(), db.data_ptr(), n, C, d, int(bf16),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(rc, "nearest centroid")
     nearest_launches += 1
     return base, db

@@ -131,9 +131,11 @@ def rerank_schedule(rows: torch.Tensor, cpad: int, group: int):
         order = ws[4 * n_slots + 4 : 4 * n_slots + 4 + P]
         hist = ws[4 * n_slots + 4 + P : 4 * n_slots + 5 + P + cpad]
         offs = ws[4 * n_slots + 5 + P + cpad :]
-        rc = _build.library().spf_rerank_schedule(
-            flat.data_ptr(), order.data_ptr(), items.data_ptr(), totals.data_ptr(),
-            hist.data_ptr(), offs.data_ptr(), P, cpad, torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(dev):  # the sort launches on the current device
+            rc = _build.library().spf_rerank_schedule(
+                flat.data_ptr(), order.data_ptr(), items.data_ptr(), totals.data_ptr(),
+                hist.data_ptr(), offs.data_ptr(), P, cpad,
+                torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, "rerank schedule")
         return order, items, totals
     key = torch.where((flat < 0) | (flat >= cpad), cpad, flat).long()
@@ -223,17 +225,18 @@ def padded_rerank_distances(queries: torch.Tensor, rows: torch.Tensor,
     out = torch.empty((Q, nprobe, pad), dtype=torch.float32, device=rows.device)
     if Q * nprobe == 0 or pad == 0:
         return out
-    blocks = _resident_blocks(rows.device.index if rows.device.index is not None
-                              else torch.cuda.current_device(), d_pad,
-                              _SLAB_CODE[vectors3d.dtype], _METRIC_CODE[metric])
-    order, items, totals = rerank_schedule(rows, C, geo["group"])
-    rc = _build.library().spf_rerank(
-        (centered_queries if quantized else queries).data_ptr(),
-        scales.data_ptr() if quantized else None, vectors3d.data_ptr(), order.data_ptr(),
-        items.data_ptr(), totals.data_ptr(), out.data_ptr(),
-        Q * nprobe, items.shape[0], blocks, nprobe, pad, d_pad, _METRIC_CODE[metric],
-        _SLAB_CODE[vectors3d.dtype], torch.cuda.current_stream(rows.device).cuda_stream,
-    )
+    # The library launches on the current device: make it the tensors' one.
+    with torch.cuda.device(rows.device):
+        blocks = _resident_blocks(torch.cuda.current_device(), d_pad,
+                                  _SLAB_CODE[vectors3d.dtype], _METRIC_CODE[metric])
+        order, items, totals = rerank_schedule(rows, C, geo["group"])
+        rc = _build.library().spf_rerank(
+            (centered_queries if quantized else queries).data_ptr(),
+            scales.data_ptr() if quantized else None, vectors3d.data_ptr(), order.data_ptr(),
+            items.data_ptr(), totals.data_ptr(), out.data_ptr(),
+            Q * nprobe, items.shape[0], blocks, nprobe, pad, d_pad, _METRIC_CODE[metric],
+            _SLAB_CODE[vectors3d.dtype], torch.cuda.current_stream(rows.device).cuda_stream,
+        )
     _build.check(rc, "rerank")
     if quantized:
         quantized_launches += 1
@@ -391,15 +394,16 @@ def padded_rerank_distances_int8mxu(qcodes: torch.Tensor, qscale: torch.Tensor,
     if Q * nprobe == 0 or pad == 0:
         return out
     geo = int8mxu_geometry(d, pad)
-    blocks = _int8mxu_blocks(rows.device.index if rows.device.index is not None
-                             else torch.cuda.current_device(), d, pad)
-    order, items, totals = rerank_schedule(rows, C, geo["group"])
-    rc = _build.library().spf_rerank_int8mxu(
-        qcodes.data_ptr(), qscale.data_ptr(), qnorm2.data_ptr(), codesT3d.data_ptr(),
-        norms2.data_ptr(), scales.data_ptr(), order.data_ptr(), items.data_ptr(),
-        totals.data_ptr(), out.data_ptr(), Q * nprobe, items.shape[0], blocks, d, pad,
-        torch.cuda.current_stream(rows.device).cuda_stream,
-    )
+    # The library launches on the current device: make it the tensors' one.
+    with torch.cuda.device(rows.device):
+        blocks = _int8mxu_blocks(torch.cuda.current_device(), d, pad)
+        order, items, totals = rerank_schedule(rows, C, geo["group"])
+        rc = _build.library().spf_rerank_int8mxu(
+            qcodes.data_ptr(), qscale.data_ptr(), qnorm2.data_ptr(), codesT3d.data_ptr(),
+            norms2.data_ptr(), scales.data_ptr(), order.data_ptr(), items.data_ptr(),
+            totals.data_ptr(), out.data_ptr(), Q * nprobe, items.shape[0], blocks, d, pad,
+            torch.cuda.current_stream(rows.device).cuda_stream,
+        )
     _build.check(rc, "int8mxu rerank")
     int8mxu_launches += 1
     return out
