@@ -36,7 +36,31 @@ Phases, each printing a line:
               search of 8,192 queries in one batch (the probe axis taken
               in chunks; peak memory logged) whose first 64 rows must equal
               an unchunked search.
-5. disk     — main's index saved packed under build/ (deleted after) and
+5. shardbuild — the build over a device list of 4 entries, every one cuda:0
+              (spfresh_tpu_torch.parallel): main's corpus and config built
+              in-core in both corpus layouts (sharded: a quarter of the rows
+              an entry; replicated: a copy on each, the first handed to the
+              view pack), with main's clusters and its recall; binary
+              (max_split_ways 2) and nested builds of main's corpus, f32
+              storage (nested at SpannIndexBuilder's default cap,
+              0.18 n, and initial_k 4: at main's cap of 256 nested replicas
+              compound with depth), each on one device twice and over the
+              list, all three equal, every point placed, nested postings
+              within the cap, full-probe recall@10 exactly 1.0 on 1,000
+              queries; main's corpus out-of-core (sample 262,144, 8 tiles of
+              131,072) over the list equal to one device, the
+              nearest-centroid and replica kernels launched on every tile;
+              65,536 rows of manhattan's corpus over the list equal to one
+              device, the L1/Linf kernel launched.  Each device-list build
+              logs its wall, launches and build phases beside main's.  Each
+              kernel is also held to its plain version at the shapes the
+              phase launches it: the replica kernel at a shard's (250,000
+              rows of main's corpus, main's centroids, db computed) and at
+              an out-of-core tile's (db given), the nearest-centroid kernel
+              at that tile against the sample fit's centroids, the L1/Linf
+              kernel on a Manhattan shard's assign block and its replica
+              pass's first row block.
+6. disk     — main's index saved packed under build/ (deleted after) and
               served from disk by LazySpannIndex on the card: the centroid
               matrix on the device, each batch's unique probed slabs staged
               by the native reader, cast to bf16 on the host and reranked
@@ -60,7 +84,7 @@ Phases, each printing a line:
               a compact() leave the same live postings and the same ids
               (up to f64 ties, tie_explained); recall before and after
               against brute force on the mutated corpus.
-6. live     — live updates on main's index through
+7. live     — live updates on main's index through
               spfresh_tpu_torch.lire.SpFreshIndex (LireConfig max 512, min
               16, a store under build/ deleted after): benchmarks/
               streaming_updates.py's traffic (20,000 inserts in batches of
@@ -73,7 +97,7 @@ Phases, each printing a line:
               or repeated id; recall before and after against brute force
               on the mutated corpus.  Then 5,000 inserts and 2,000 deletes
               on a 262,144-row int8 index and the same repack gate.
-7. sharded  — multi-device serving: main's index as live left it in a
+8. sharded  — multi-device serving: main's index as live left it in a
               ShardedSpannIndex, 4 shards on cuda:0 when the card is alone
               (one shard a card otherwise), batch 8,192.  Global nprobe at
               main's recall point on 16,384 queries: the rerank launched
@@ -98,7 +122,7 @@ Phases, each printing a line:
               to the same shards on the CPU up to f64 ties on the
               dequantized rows, with the distances of rows of equal ids
               within RERANK_RTOL.
-8. large    — the same generator at 4,194,304 x 128 (4,194 centers) with
+9. large    — the same generator at 4,194,304 x 128 (4,194 centers) with
               int8 (IVF-SQ8) storage: more than 32,768 clusters, so stage 1
               takes the windowed centroid scan and the rerank its quantized
               path; ground truth, the nprobe sweep to recall@10 >= 0.80
@@ -116,17 +140,17 @@ Phases, each printing a line:
               index is then saved packed and searched lazily on the card
               (window scan and quantized rerank launched, recall within
               0.01 of the in-memory search, 1,000 queries against the CPU).
-9. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
+10. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
               d 960, 16,384 queries, seed 12345), a Manhattan bf16 build:
               the L1/Linf pairwise kernel runs the build's assignments,
               the closure pass, stage 1 and the ground truth; the sweep
               to recall@10 >= 0.90, the bf16 rerank against its plain
               version on the phase's slabs (d_pad 1,024) and stage-1 rows,
               and the device-time breakdown.
-10. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
+11. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
               sweep is printed (no target: Chebyshev plateaus on this data)
               and the rerank checked on the phase's slabs at nprobe 48.
-11. outofcore — benchmarks/outofcore_build_bench.py's corpus (8,388,608 x 96,
+12. outofcore — benchmarks/outofcore_build_bench.py's corpus (4,194,304 x 96,
               a memmap under build/) built out-of-core through
               Config.build_sample_rows (sample 1,048,576, tile 262,144, cap
               256, bf16): one nearest-centroid launch per tile, the replica
@@ -141,7 +165,7 @@ Phases, each printing a line:
               window scan and float rerank launched, recall within 0.01 of
               the in-memory search, 1,000 queries against the CPU, peak
               device memory under an eighth of the view's slab bytes.
-12. exact   — a 20k f32 index: full-probe search must have recall exactly 1.0
+13. exact   — a 20k f32 index: full-probe search must have recall exactly 1.0
               (Euclidean; Manhattan and Chebyshev at d 960, where a miss is
               allowed only as a tie, shown in f64).
 
@@ -188,8 +212,10 @@ BF16_FLOPS = 989e12  # tensor cores
 INT8_OPS = 1979e12   # tensor cores, dense int8
 PAIRWISE_RTOL, PAIRWISE_ATOL = 1e-5, 1e-4  # tests/test_pallas_pairwise.py: L1 sum order
 GIST_D, GIST_LATENT = 960, 32
-OC_N, OC_D, OC_SAMPLE, OC_TILE = 8_388_608, 96, 1_048_576, 262_144
-OC_NPROBE = 8  # the out-of-core phase's serving point (in-memory recall@10 0.9792)
+# n cut from the bench's 20M for the time limit: 4,194,304 rows once the
+# command passes ~1,000 s (the disk phase's hot-spot drain varies by minutes).
+OC_N, OC_D, OC_SAMPLE, OC_TILE = 4_194_304, 96, 1_048_576, 262_144
+OC_NPROBE = 8  # the out-of-core phase's serving point
 RERANK_RTOL = 1e-5   # f32 sums of 128 terms in another order
 REPLICA_RTOL = 1e-4  # expansion-form ranks, f32, another summation order
 # Nearest-centroid distances |x|^2 + |c|^2 - 2 x.c: f32 sums of d products in
@@ -199,6 +225,12 @@ NEAREST_RTOL = 1e-5
 # order.  A rank is a difference of terms of the size of |c|^2, so its
 # error is relative to that size, not to the (possibly cancelled) rank.
 SCAN_RTOL = 1e-5
+# The shardbuild phase: a device list of 4 entries (cuda:0 repeated); the
+# binary and nested builds on main's corpus; the out-of-core build of main's
+# corpus in 8 tiles; 65,536 rows of manhattan's.
+SB_ENTRIES, SB_L1_N = 4, 65_536
+SB_DEVICES = ["cuda:0"] * SB_ENTRIES
+SB_OC_SAMPLE, SB_OC_TILE = 262_144, 131_072
 LARGE_N = 4_194_304  # the smallest power of two whose build crosses 32,768 clusters
 # The large phase's recall target.  On this corpus the hierarchical build's
 # probe recall falls with n in both packages (tests/test_torch_build_quality.py
@@ -1054,6 +1086,15 @@ def build_logged(torch, cfg, data, tag: str):
     return index, view
 
 
+def main_config(**clustering) -> dict:
+    """``main``'s build config (bench.py:369-384), with clustering params
+    overridden (None drops one, leaving SpannIndexBuilder's default)."""
+    params = {"distance_metric": "Euclidean", "initialization_method": "KMeans++",
+              "initial_k": 16, "desired_cluster_size": 256, "rng_seed": 42, **clustering}
+    return {"clustering_params": {k: v for k, v in params.items() if v is not None},
+            "storage_dtype": "bfloat16", "search": {"query_batch_size": 8192}}
+
+
 def phase_main(torch, n: int, nq: int, report) -> None:
     from spfresh_tpu_torch.index import Config, brute_force_search
     from spfresh_tpu_torch.ops import rerank, replica
@@ -1063,15 +1104,7 @@ def phase_main(torch, n: int, nq: int, report) -> None:
     data, queries = mixture(12345, n, nq)
     log(f"main: corpus n={n} d=128 nq={nq} made in {time.perf_counter() - t0:.2f} s (host)")
     with tempfile.TemporaryDirectory() as out:
-        cfg = Config.from_dict({
-            "clustering_params": {
-                "distance_metric": "Euclidean", "initialization_method": "KMeans++",
-                "initial_k": 16, "desired_cluster_size": 256, "rng_seed": 42,
-            },
-            "output_path": out,
-            "storage_dtype": "bfloat16",
-            "search": {"query_batch_size": 8192},
-        })
+        cfg = Config.from_dict({**main_config(), "output_path": out})
         metrics.DEFAULT.reset()
         rerank.launches = 0
         replica.launches = 0
@@ -1097,6 +1130,245 @@ def phase_main(torch, n: int, nq: int, report) -> None:
         kernel_rerank_view(torch, view, queries, nprobe, "Euclidean", "main")
         full_probe_check(torch, index, queries)
     return index, data, queries, gt, nprobe
+
+
+def latent_rows(seed: int, n: int, rows: int, d: int = GIST_D, latent: int = GIST_LATENT,
+                spread: float = 0.7) -> np.ndarray:
+    """The first ``rows`` corpus rows of ``latent_mixture(seed, n, ...)``
+    without drawing the rest: numpy fills a draw in order, so the leading
+    rows of the ambient noise are those of a shorter draw."""
+    rng = np.random.default_rng(seed)
+    n_centers = max(64, n // 1000)
+    proj = rng.standard_normal((latent, d)).astype(np.float32) / np.sqrt(latent)
+    centers = rng.standard_normal((n_centers, latent)).astype(np.float32)
+    a = rng.integers(0, n_centers, size=n)[:rows]
+    lat = centers[a] + spread * rng.standard_normal((n, latent))[:rows]
+    amb = 0.01 * rng.standard_normal((rows, d))
+    return (lat.astype(np.float32) @ proj + amb).astype(np.float32)
+
+
+def build_launches(reset: bool = False) -> dict:
+    """The build kernels' launch counts (set to 0 first when ``reset``)."""
+    from spfresh_tpu_torch.ops import pairwise, replica
+
+    if reset:
+        replica.launches = replica.nearest_launches = pairwise.launches = 0
+    return {"replica": replica.launches, "nearest_centroid": replica.nearest_launches,
+            "pairwise": pairwise.launches}
+
+
+def phase_list(profile: dict) -> str:
+    return " ".join(f"{k}={v:.3f}" for k, v in sorted(profile.items(), key=lambda kv: -kv[1]))
+
+
+def timed_build(torch, cfg, data, tag: str, **kw):
+    """``SpannIndexBuilder(cfg, **kw).build(save=False)`` on the card, the
+    kernels' launch counts set to 0 just before and read just after; logs
+    the wall, the counts and the build's phases.  Returns (index, wall,
+    launches, builder)."""
+    from spfresh_tpu_torch.index import SpannIndexBuilder
+
+    build_launches(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    builder = SpannIndexBuilder(cfg, device=DEVICE, **kw).with_data(data)
+    index = builder.build(save=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build_launches()
+    log(f"shardbuild {tag}: build wall={wall:.3f} s clusters={index.num_clusters} "
+        f"stored={index.num_vectors} launches {launches}; phases {phase_list(index.build_profile)}")
+    return index, wall, launches, builder
+
+
+def cluster_diff(a, b) -> int:
+    """Clusters of two indexes that differ in member ids or centroid
+    vector (-1 when their cluster ids differ)."""
+    if sorted(a.postings) != sorted(b.postings):
+        return -1
+    return sum(not (np.array_equal(a.postings[c][0], b.postings[c][0])
+                    and np.array_equal(a.centroids[c], b.centroids[c])) for c in a.postings)
+
+
+def kernel_replica_shard(torch, data, index, params, rows: int) -> None:
+    """The replica kernel as the in-core build's per-shard pass launches
+    it: one shard's rows of main's corpus (bf16), main's centroids, each
+    row's nearest centroid as its base, ``db`` computed by the kernel;
+    against the plain version with replica_compare, times logged."""
+    from spfresh_tpu_torch.ops import replica
+
+    dev = torch.device(DEVICE)
+    cents = torch.from_numpy(np.stack([index.centroids[c] for c in sorted(index.centroids)]))
+    cents = cents.to(dev).to(torch.bfloat16)
+    X = torch.from_numpy(data[:rows]).to(dev).to(torch.bfloat16)
+    base, _ = replica.nearest_centroid(X, cents)
+    n_extra = min(params.max_replicas - 1, cents.shape[0] - 1)
+    bt = float(np.float32(params.boundary_threshold))
+    lam = float(params.soar_lambda or 0.0)
+
+    def kernel():
+        return replica.replica_topk(X, base, cents, bt, n_extra, soar_lambda=lam)
+
+    def plain():
+        return replica.replica_topk_plain(X, base, cents, bt, n_extra, soar_lambda=lam)
+
+    ki, kr, pi, pr = (t.cpu().numpy() for t in (*kernel(), *plain()))
+    tie_rows, _, max_rel = replica_compare(
+        X.float().cpu().numpy().astype(np.float64), base.cpu().numpy(),
+        cents.float().cpu().numpy().astype(np.float64), bt, ki, kr, pi, pr, lam)
+    admitted = int(np.isfinite(kr).sum())
+    assert admitted > rows // 10, f"only {admitted} replicas admitted: degenerate check"
+    log(f"shardbuild kernel replica (a shard, db computed): n={rows} C={cents.shape[0]} "
+        f"d={X.shape[1]} bf16 n_extra={n_extra} lambda={lam} admitted={admitted} "
+        f"near_tie_rows={tie_rows} max_rank_rel_err={max_rel:.3e} (rtol {REPLICA_RTOL}) "
+        f"kernel={cuda_ms(torch, kernel, 3):.4f} ms plain={cuda_ms(torch, plain, 1):.4f} ms")
+
+
+def kernel_pairwise_shard(torch, X, index, rows: int, k: int) -> None:
+    """The L1/Linf kernel as the Manhattan device-list build launches it on
+    one shard (``rows`` rows of ``X`` on the bf16 grid, as the build holds
+    its corpus, in f32): the assign block against ``k`` of the index's
+    centroids (the first round's width), and the replica pass's first row
+    block against every centroid.  Within PAIRWISE_RTOL / PAIRWISE_ATOL of
+    the plain version (another summation order)."""
+    from spfresh_tpu_torch.ops import pairwise, replica
+
+    dev = torch.device(DEVICE)
+    cents = torch.from_numpy(np.stack([index.centroids[c] for c in sorted(index.centroids)]))
+    cents = cents.to(dev).to(torch.bfloat16).float()
+    X = torch.from_numpy(np.ascontiguousarray(X[:rows])).to(dev).to(torch.bfloat16).float()
+    tile = max(256, replica.PLAIN_TILE_ELEMS // cents.shape[0])
+    for tag, x, c in (("assign block", X, cents[:k]), ("replica row block", X[:tile], cents)):
+        got = pairwise.l1_linf_pairwise(x, c, "Manhattan")
+        want = pairwise.l1_linf_pairwise_plain(x, c, "Manhattan")
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        over = int((err > PAIRWISE_ATOL + PAIRWISE_RTOL * want.abs()).sum())
+        ms = cuda_ms(torch, lambda: pairwise.l1_linf_pairwise(x, c, "Manhattan"), 3)
+        plain_ms = cuda_ms(torch, lambda: pairwise.l1_linf_pairwise_plain(x, c, "Manhattan"), 1)
+        log(f"shardbuild kernel pairwise ({tag} of a shard): {x.shape[0]} x {c.shape[0]} x "
+            f"{x.shape[1]} f32 Manhattan max_abs_err={float(err.max()):.3e} entries outside "
+            f"rtol {PAIRWISE_RTOL} atol {PAIRWISE_ATOL}: {over}; kernel={ms:.4f} ms "
+            f"plain={plain_ms:.4f} ms")
+        assert over == 0, f"pairwise at a shard's {tag}: {over} entries outside the tolerance"
+
+
+def phase_shardbuild(torch, index, data, queries, gt, nprobe: int, smi: str) -> dict:
+    """The build over a device list of SB_ENTRIES entries, every one cuda:0.
+    Gates: main's clusters from the in-core build in both corpus layouts
+    (and, replicated, the first entry's corpus handed to the view pack,
+    whose slabs equal main's); binary and nested builds equal on one device
+    twice and over the list, every point placed, nested clusters within the
+    cap, full-probe recall@10 exactly 1.0; the out-of-core build and a
+    Manhattan build equal their single-device builds; each kernel of a
+    device-list path launched; each kernel held to its plain version at
+    the shapes the phase launches it.  Returns the device-list builds'
+    launches, per report entry."""
+    from spfresh_tpu_torch.eval import recall_at_k
+    from spfresh_tpu_torch.index import Config
+
+    devices = SB_DEVICES
+    E = len(devices)
+    total = dict.fromkeys(("replica", "nearest_centroid", "pairwise"), 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    log(f"shardbuild: {E} entries {devices} ({smi}); main's single-device build phases "
+        f"{phase_list(index.build_profile)}")
+    cfg = Config.from_dict(main_config())
+    kernel_replica_shard(torch, data, index, cfg.to_clustering_params(), len(data) // E)
+    main_view = index.padded_view()
+    for layout in ("sharded", "replicated"):
+        built, _, launches, _ = timed_build(torch, cfg, data, f"in-core {layout}",
+                                            devices=devices, corpus_layout=layout)
+        add(launches)
+        assert launches["replica"] == E, f"{layout}: replica launches {launches}, one an entry"
+        differ = cluster_diff(index, built)
+        if layout == "replicated":
+            corpus = built._corpus_cache
+            assert corpus is not None and corpus[1].device == built.device, "no corpus handoff"
+            view = built.padded_view()
+            same = (torch.equal(view.vectors3d, main_view.vectors3d)
+                    and torch.equal(view.ids2d, main_view.ids2d))
+            log(f"shardbuild in-core replicated: the first entry's corpus "
+                f"{tuple(corpus[1].shape)} on {corpus[1].device} packed the view; slabs equal "
+                f"main's: {same}")
+            assert same, "the replicated build's view differs from main's"
+        ids, _ = built.search(queries, 10, nprobe=nprobe)
+        rec = recall_at_k(ids, gt, 10)
+        log(f"shardbuild in-core {layout}: {differ} of {index.num_clusters} clusters differ from "
+            f"main's single-device build; replica launches per entry {launches['replica'] / E:g}; "
+            f"recall@10={rec:.4f} at nprobe {nprobe}")
+        assert differ == 0, f"{layout}: {differ} clusters differ from the single-device build"
+        del built
+        torch.cuda.empty_cache()
+
+    q, gt_q = queries[:1000], gt[:1000]
+    for mode, over in (("nested", {"replication": "nested", "initial_k": 4,
+                                   "desired_cluster_size": None}),
+                       ("binary", {"max_split_ways": 2})):
+        cfg = Config.from_dict({**main_config(**over), "storage_dtype": "float32"})
+        builds = []
+        for tag, kw in (("one device", {}), ("one device again", {}),
+                        (f"{E} entries", {"devices": devices})):
+            built, _, launches, _ = timed_build(torch, cfg, data, f"{mode} {tag}", **kw)
+            builds.append(built)
+        add(launches)  # the device-list build's
+        assert mode == "nested" or launches["replica"] == E, launches
+        differ = [cluster_diff(builds[0], b) for b in builds[1:]]
+        built = builds[-1]
+        placed = len(np.unique(np.concatenate([ids for ids, _ in built.postings.values()])))
+        largest = max(len(ids) for ids, _ in built.postings.values())
+        cap = round(0.18 * len(data)) if mode == "nested" else None
+        full, _ = built.search(q, 10, nprobe=built.num_clusters)
+        rec_full = recall_at_k(full, gt_q, 10)
+        ids, _ = built.search(q, 10, nprobe=nprobe)
+        log(f"shardbuild {mode}: n={len(data)} clusters differ (again, {E} entries) {differ}; "
+            f"{placed} points placed; stored {built.num_vectors} "
+            f"(x{built.num_vectors / len(data):.2f}); largest posting {largest} (cap {cap}); "
+            f"full-probe recall@10={rec_full} and recall@10={recall_at_k(ids, gt_q, 10):.4f} "
+            f"at nprobe {nprobe} ({len(q)} queries)")
+        assert differ == [0, 0], f"{mode}: builds differ {differ}"
+        assert placed == len(data), f"{mode}: {len(data) - placed} points in no cluster"
+        assert cap is None or largest <= cap, f"nested: a posting of {largest} past the cap {cap}"
+        assert rec_full == 1.0, f"{mode}: full-probe recall@10 {rec_full}"
+        del builds, built
+        torch.cuda.empty_cache()
+
+    cfg = Config.from_dict({**main_config(), "build_sample_rows": SB_OC_SAMPLE,
+                            "build_tile_rows": SB_OC_TILE})
+    one, w1, _, _ = timed_build(torch, cfg, data, "out-of-core one device")
+    many, wE, launches, builder = timed_build(torch, cfg, data, f"out-of-core {E} entries",
+                                              devices=devices)
+    add(launches)
+    tiles = -(-len(data) // SB_OC_TILE)
+    differ = cluster_diff(one, many)
+    log(f"shardbuild out-of-core: walls {w1:.3f} s (one device) and {wE:.3f} s ({E} entries); "
+        f"{tiles} tiles: nearest-centroid launches per entry {launches['nearest_centroid'] / E:g}, "
+        f"replica {(launches['replica'] - 1) / E:g} (and the sample fit's one); "
+        f"{differ} of {one.num_clusters} clusters differ")
+    assert launches["nearest_centroid"] == tiles and launches["replica"] == tiles + 1, launches
+    assert differ == 0, f"out-of-core: {differ} clusters differ over {E} entries"
+    kernel_nearest(torch, data, builder.outofcore, SB_OC_TILE)
+    kernel_replica_tile(torch, data, many, builder.outofcore, cfg.to_clustering_params(),
+                        SB_OC_TILE)
+    del one, many, builder
+
+    l1 = latent_rows(12345, 1_000_000, SB_L1_N)
+    cfg = Config.from_dict({**main_config(distance_metric="Manhattan")})
+    one, _, _, _ = timed_build(torch, cfg, l1, "manhattan one device")
+    many, _, launches, _ = timed_build(torch, cfg, l1, f"manhattan {E} entries",
+                                       devices=devices)
+    add(launches)
+    differ = cluster_diff(one, many)
+    log(f"shardbuild manhattan: n={SB_L1_N} d={GIST_D}; L1/Linf launches over {E} entries "
+        f"{launches['pairwise']}; {differ} of {one.num_clusters} clusters differ")
+    assert launches["pairwise"] > 0, "the L1/Linf kernel did not run"
+    assert differ == 0, f"manhattan: {differ} clusters differ over {E} entries"
+    kernel_pairwise_shard(torch, l1, many, SB_L1_N // E, cfg.to_clustering_params().initial_k)
+    return total
 
 
 def mixture_more(seed: int, n: int, m: int, draw_seed: int, d: int = 128,
@@ -2217,8 +2489,9 @@ def phase_outofcore(torch, n: int, nq: int, report) -> None:
         log(f"outofcore: every row sits in its base posting and in 1..{member.max()} postings; "
             f"largest posting {sizes.max()} <= ceil({cfg.replica_overflow} * {cap}) = {limit}")
 
-        kernel_nearest(torch, data, result, report)
-        kernel_replica_tile(torch, data, index, result, cfg.to_clustering_params(), report)
+        kernel_nearest(torch, data, result, OC_TILE, report)
+        kernel_replica_tile(torch, data, index, result, cfg.to_clustering_params(), OC_TILE,
+                            report)
 
         t0 = time.perf_counter()
         view = index.padded_view()
@@ -2268,10 +2541,11 @@ def phase_outofcore(torch, n: int, nq: int, report) -> None:
         shutil.rmtree(store, ignore_errors=True)
 
 
-def kernel_nearest(torch, data, result, report) -> None:
-    """The nearest-centroid kernel on the build's first tile against its
-    plain version, with the centroid set the streamed base pass launched
-    with (the sample fit's, bf16, as the build streams them).  Ids must
+def kernel_nearest(torch, data, result, rows: int, report=None) -> None:
+    """The nearest-centroid kernel on the build's first tile (``rows``
+    rows) against its plain version, with the centroid set the streamed
+    base pass launched with (the sample fit's, bf16, as the build streams
+    them); its times go into ``report`` when one is given.  Ids must
     agree except at f32 near-ties: a differing row's two centroids must be
     within TIE_TOL of (|x|^2 + |c|^2) in f64.  Where the ids agree, the
     distances must agree within NEAREST_RTOL of |x|^2 + |c|^2."""
@@ -2280,7 +2554,7 @@ def kernel_nearest(torch, data, result, report) -> None:
     dev = torch.device(DEVICE)
     cents = torch.from_numpy(np.asarray(data[result.sample_centroid_rows]))
     cents = cents.to(dev).to(torch.bfloat16)
-    X = torch.from_numpy(np.array(data[:OC_TILE])).to(dev).to(torch.bfloat16)
+    X = torch.from_numpy(np.array(data[:rows])).to(dev).to(torch.bfloat16)
     n, C, d = X.shape[0], cents.shape[0], X.shape[1]
     kb, kd = replica.nearest_centroid(X, cents)
     pb, pd = replica.nearest_centroid_plain(X, cents)
@@ -2299,6 +2573,8 @@ def kernel_nearest(torch, data, result, report) -> None:
         f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} of |x|^2+|c|^2 (rtol "
         f"{NEAREST_RTOL}) kernel={ms:.4f} ms ({tflops:.2f} TFLOP/s) plain={plain_ms:.4f} ms "
         f"gemm_ms={g_ms:.4f} bound={b['bound_ms']:.4f} ms")
+    if report is None:
+        return
     near = report["nearest_centroid"]  # the error stays the worst of every check
     near.update({"max_abs_err": max(near["max_abs_err"], max_abs), "ms": ms,
                  "plain_ms": plain_ms, "library_ms": None, **b})
@@ -2326,21 +2602,21 @@ def nearest_compare(Xh, Ch, kb, kd, pb, pd):
     return int((~same).sum()), max(gaps, default=0.0), max_abs, max_rel
 
 
-def kernel_replica_tile(torch, data, index, result, params, report) -> None:
+def kernel_replica_tile(torch, data, index, result, params, rows: int, report=None) -> None:
     """The replica kernel as the streamed replica pass launches it: the
-    build's first tile, its final (post-rebalance) centroids, the tile's
-    base clusters and ``db`` supplied, the build's n_extra, threshold and
-    SOAR lambda; against the plain version with replica_compare.  Its
-    times and bound are the report's: the out-of-core build launches this
-    shape once per tile."""
+    build's first tile (``rows`` rows), its final (post-rebalance)
+    centroids, the tile's base clusters and ``db`` supplied, the build's
+    n_extra, threshold and SOAR lambda; against the plain version with
+    replica_compare.  Its times and bound go into ``report`` when one is
+    given: the out-of-core build launches this shape once per tile."""
     from spfresh_tpu_torch.ops import replica
 
     dev = torch.device(DEVICE)
     cents = torch.from_numpy(np.stack([index.centroids[c] for c in sorted(index.centroids)]))
     cents = cents.to(dev).to(torch.bfloat16)
-    X = torch.from_numpy(np.array(data[:OC_TILE])).to(dev).to(torch.bfloat16)
+    X = torch.from_numpy(np.array(data[:rows])).to(dev).to(torch.bfloat16)
     n, C, d = X.shape[0], cents.shape[0], X.shape[1]
-    base = torch.from_numpy(np.ascontiguousarray(result.base[:OC_TILE], np.int32)).to(dev)
+    base = torch.from_numpy(np.ascontiguousarray(result.base[:rows], np.int32)).to(dev)
     db = ((X.float() - cents[base.long()].float()) ** 2).sum(1)
     n_extra = min(params.max_replicas - 1, C - 1)
     bt = float(np.float32(params.boundary_threshold))
@@ -2370,6 +2646,8 @@ def kernel_replica_tile(torch, data, index, result, params, report) -> None:
         f"max_rank_rel_err={max_rel:.3e} max_rank_abs_err={max_abs:.3e} (rtol {REPLICA_RTOL}) "
         f"kernel={ms:.4f} ms ({4 * n * C * d / (ms * 1e-3) / 1e12:.2f} TFLOP/s) "
         f"plain={plain_ms:.4f} ms gemm_ms={g_ms:.4f} bound={b['bound_ms']:.4f} ms")
+    if report is None:
+        return
     report["replica"].update({"max_abs_err": max(report["replica"]["max_abs_err"], max_abs),
                               "ms": ms, "plain_ms": plain_ms, **b})
 
@@ -2717,11 +2995,14 @@ def main() -> int:
     report = {}
     main_state = {}
     sharded_launches = {}  # the sharded phase's, added to the report at the end
+    shardbuild_launches = {}  # the shardbuild phase's device-list builds', likewise
     runs = {
         "kernels": lambda: phase_kernels(torch, report),
         "main": lambda: main_state.update(zip(
             ("index", "data", "queries", "gt", "nprobe"),
             phase_main(torch, 1_000_000, 16_384, report))),
+        "shardbuild": lambda: shardbuild_launches.update(
+            phase_shardbuild(torch, **main_state, smi=smi)),
         "disk": lambda: phase_disk(torch, **main_state),
         "live": lambda: main_state.update(zip(("live", "int8"), phase_live(torch, **main_state))),
         "sharded": lambda: sharded_launches.update(phase_sharded(torch, **main_state, smi=smi)),
@@ -2738,7 +3019,7 @@ def main() -> int:
             main_state.clear()  # release main's index before the large phase
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
-    for name, c in sharded_launches.items():
+    for name, c in (*sharded_launches.items(), *shardbuild_launches.items()):
         report[name]["launches"] += c
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

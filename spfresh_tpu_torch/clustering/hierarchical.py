@@ -1,6 +1,5 @@
 """Hierarchical balanced clustering (counterpart of
-``spfresh_tpu/clustering/hierarchical.py``, single-device,
-``replication="final"``).
+``spfresh_tpu/clustering/hierarchical.py``).
 
 The build runs:
 
@@ -8,21 +7,32 @@ The build runs:
    seeded from ``rng_seed`` (``_level_rng``), not ``jax.random``, so the
    port picks other initial seeds than the JAX package for the same seed;
    the tests inject the reference's seeds to compare the rest.
-2. One hard assignment + medoid update (``_assign_medoid_fused``).
-3. Level-synchronous multi-way subdivision: big levels run on the device
-   (``_split_level_core``), levels of at most ``_tail_rows_for`` member rows
-   on the host (``_split_level_multiway_host``), with the JAX package's
-   seeds, tie-breaks and Philox draws, so the same initial seeds give the
-   same clusters.
-4. One closure-replica pass and the host per-cluster replica budget.
-   Euclidean with at most 8 replicas takes ``ops.replica.replica_topk``
-   (the CUDA kernel on a CUDA device, its plain version on the CPU);
-   Manhattan, Chebyshev and more replicas take the unfused
-   ``replica_topk_elementwise``, whose distance blocks launch the L1/Linf
-   kernel on a CUDA device.
+2. One assignment + medoid update: hard (``_assign_medoid_fused``) for
+   ``replication="final"``, with the closure replicas
+   (``_assign_with_closure``, then ``_medoid_update``) for ``"nested"``.
+3. Subdivision.  Multi-way (``max_split_ways`` > 2, ``"final"``):
+   level-synchronous; big levels run on the device (``_split_level_core``),
+   levels of at most ``_tail_rows_for`` member rows on the host
+   (``_split_level_multiway_host``).  Binary (``max_split_ways`` 2, or
+   ``"nested"``): the reference's two-seed split (``_split_level_flat``),
+   with the in-split closure under ``"nested"`` and an exact balanced
+   median split for a cluster that would not split.  Seeds, tie-breaks and
+   the per-level Philox draws are the JAX package's, so the same initial
+   seeds give the same clusters.
+4. Under ``"final"``, one closure-replica pass and the host per-cluster
+   replica budget.  Euclidean with at most 8 replicas takes
+   ``ops.replica.replica_topk`` (the CUDA kernel on a CUDA device, its
+   plain version on the CPU); Manhattan, Chebyshev and more replicas take
+   the unfused ``replica_topk_elementwise``, whose distance blocks launch
+   the L1/Linf kernel on a CUDA device.
 
-Not ported: the mesh builds, the device-resident subdivision, and the
-``nested``/binary split paths (ROADMAP queue 1).
+Over a list of devices (``devices=[...]``, one process driving every
+entry; ``spfresh_tpu_torch.parallel``) steps 1-4 run data-sharded with the
+same results as on one device.  ``corpus_layout="sharded"`` keeps n/S
+corpus rows an entry, ``"replicated"`` a full copy on each (the binary
+and nested modes always take it).  Tail levels stay on the host.
+
+Not ported: the device-resident subdivision (single device and mesh).
 """
 
 from __future__ import annotations
@@ -33,8 +43,15 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from spfresh_tpu_torch.clustering.utils import budget_sort, masked_means, next_pow2
-from spfresh_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+from spfresh_tpu_torch.clustering.utils import (
+    budget_sort,
+    masked_means,
+    next_pow2,
+    seg_max,
+    seg_min,
+    seg_sum,
+)
+from spfresh_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device, resolve_entries
 from spfresh_tpu_torch.core.dtypes import bf16_round_np
 from spfresh_tpu_torch.ops.distances import (
     EUCLIDEAN,
@@ -147,6 +164,27 @@ def _kmeanspp_init(X: torch.Tensor, k: int, metric: str, rng: np.random.Generato
     return np.asarray(chosen, np.int64)
 
 
+def membership(D, cent_vecs, metric: str, boundary_threshold: float, closure: bool = True):
+    """(n, k) bool membership from the distances D (n, k) to ``cent_vecs``:
+    the nearest centroid, and under ``closure`` every centroid j with
+    D[p, j] < bt * min_dist and dist(c_best, c_j) >= D[p, j] (the
+    reference's closure rule)."""
+    best = torch.argmin(D, dim=1)
+    mask = best[:, None] == torch.arange(D.shape[1], device=D.device)[None, :]
+    if not closure:
+        return mask
+    min_d = torch.amin(D, dim=1)
+    cc = pairwise_distance(cent_vecs, cent_vecs, metric)  # (k, k)
+    thr = float(np.float32(boundary_threshold)) * min_d
+    return mask | ((D < thr[:, None]) & (cc[best] >= D))
+
+
+def _assign_with_closure(X, cent_vecs, metric: str, boundary_threshold: float):
+    """(n, k) bool closure membership of the rows of X (``membership``)."""
+    return membership(pairwise_distance(X, cent_vecs, metric), cent_vecs, metric,
+                      boundary_threshold)
+
+
 def _medoid_update(X, member_mask, old_idx, metric: str):
     """Per-cluster mean, then the member point closest to it (ties to the
     lowest row).  Empty clusters keep their centroid."""
@@ -193,11 +231,8 @@ def _split_level_core(X, point_list, cluster_of, c1_idx, seed_valid, metric: str
         ok = seed_valid[:, j]  # (S,) does this cluster want a j-th child?
         ok_p = ok[cluster_of]
         d_masked = torch.where(~taken & ok_p, d_min, neg_inf)
-        seg_max = torch.full((S,), float("-inf"), device=dev).scatter_reduce(
-            0, cluster_of, d_masked, "amax")
-        at_max = (d_masked == seg_max[cluster_of]) & ~taken & ok_p
-        sj_pos = torch.full((S,), P, dtype=torch.int64, device=dev).scatter_reduce(
-            0, cluster_of, torch.where(at_max, pos, torch.full_like(pos, P)), "amin")
+        at_max = (d_masked == seg_max(d_masked, cluster_of, S)[cluster_of]) & ~taken & ok_p
+        sj_pos = seg_min(torch.where(at_max, pos, torch.full_like(pos, P)), cluster_of, S, P)
         found = sj_pos < P
         sj_pos = torch.clamp(sj_pos, 0, P - 1)
         seed_j = point_list[sj_pos]
@@ -210,6 +245,48 @@ def _split_level_core(X, point_list, cluster_of, c1_idx, seed_valid, metric: str
         taken = taken | ((pos == sj_pos[cluster_of]) & use[cluster_of])
     counts = torch.bincount(cluster_of * m_ways + best_j, minlength=S * m_ways)
     return best_j, seeds, counts.reshape(S, m_ways), d1
+
+
+def _split_level_flat(X, point_list, cluster_of, valid, c1_idx, metric: str,
+                      boundary_threshold: float, closure: bool, num_segments: int):
+    """Batched binary split of every oversized cluster at a level.
+
+    ``point_list`` (P,) holds the members grouped by cluster, ``cluster_of``
+    (P,) each member's segment, ``c1_idx`` (S,) the first seed (a random
+    member) of each segment.  The second seed is the member farthest from
+    the first (ties to the earliest position); each member joins the
+    nearer seed (ties to the first), and under ``closure`` also the other
+    one when it passes the closure rule.  Returns (m1, m2 (P,) child
+    membership, c2_idx (S,) second seeds, degenerate (S,) for a split
+    with an empty or a whole child, d1 (P,) seed-1 distances for the
+    host's balanced fallback)."""
+    P = point_list.shape[0]
+    S = num_segments
+    dev = X.device
+    pts = X[point_list]  # (P, d)
+    c1v = X[c1_idx]  # (S, d)
+    d1 = rowwise_distance(pts, c1v[cluster_of], metric)
+    is_c1 = point_list == c1_idx[cluster_of]
+    d1m = torch.where(valid & ~is_c1, d1, torch.full_like(d1, float("-inf")))
+    pos = torch.arange(P, device=dev)
+    at_max = valid & ~is_c1 & (d1m == seg_max(d1m, cluster_of, S)[cluster_of])
+    c2_pos = seg_min(torch.where(at_max, pos, torch.full_like(pos, P)), cluster_of, S, P)
+    c2_idx = point_list[torch.clamp(c2_pos, 0, P - 1)]
+    c2v = X[c2_idx]
+    d2 = rowwise_distance(pts, c2v[cluster_of], metric)
+    best2 = d2 < d1
+    if closure:
+        cc = rowwise_distance(c1v, c2v, metric)[cluster_of]  # (P,)
+        bt = float(np.float32(boundary_threshold))
+        m1 = valid & (~best2 | (best2 & (d1 < bt * d2) & (cc >= d1)))
+        m2 = valid & (best2 | (~best2 & (d2 < bt * d1) & (cc >= d2)))
+    else:
+        m1 = valid & ~best2
+        m2 = valid & best2
+
+    cnt, cnt1, cnt2 = (seg_sum(m.long(), cluster_of, S) for m in (valid, m1, m2))
+    degenerate = (cnt1 == cnt) | (cnt2 == cnt) | (cnt1 == 0) | (cnt2 == 0)
+    return m1, m2, c2_idx, degenerate, d1
 
 
 def _np_rowdist(a: np.ndarray, b: np.ndarray, metric: str) -> np.ndarray:
@@ -278,24 +355,61 @@ def _tail_rows_for(platform: str, d: int) -> int:
 
 
 class HierarchicalClustering:
-    """Single-device balanced hierarchical clustering with a final closure
-    replica pass.  ``data`` is a host (n, d) array; it is rounded to the
-    bfloat16 grid first when ``params.wire_dtype`` asks for it, exactly as
-    the JAX package rounds its corpus upload, and the f32 result is copied
-    to ``device``."""
+    """Balanced hierarchical clustering.  ``data`` is a host (n, d) array;
+    it is rounded to the bfloat16 grid first when ``params.wire_dtype``
+    asks for it, exactly as the JAX package rounds its corpus upload.
+
+    ``device``: where a single-device build runs.  ``devices``: a list of
+    device-list entries (an entry may repeat a device); with two or more
+    the build runs data-sharded over them, the first entry in the place of
+    ``device``, with the clusters of a single-device build.
+    ``corpus_layout`` (device lists only): ``"sharded"`` keeps n/S corpus
+    rows an entry (padding rows are copies of row 0, so ties break to the
+    real row); ``"replicated"`` a full copy on each.  The binary and
+    nested modes take ``"replicated"``, as in the JAX package."""
 
     def __init__(self, params: ClusteringParams, data,
-                 device: torch.device | str = DEFAULT_DEVICE):
+                 device: torch.device | str = DEFAULT_DEVICE, devices=None,
+                 corpus_layout: str = "sharded"):
+        if corpus_layout not in ("sharded", "replicated"):
+            raise ValueError(f"unknown corpus_layout {corpus_layout!r}")
+        if params.replication == "nested" or params.max_split_ways == 2:
+            corpus_layout = "replicated"  # the binary split gathers from the whole corpus
         self.params = params
+        devs = None
+        if devices is not None:
+            devs = resolve_entries(devices)
+            device = devs[0]
+            if len(devs) < 2:
+                devs = None  # one entry: the single-device build on it
+        self.devices = devs
         self.device = resolve_device(device)
+        self._corpus_layout = corpus_layout if devs else "single"
         host = np.asarray(data, np.float32)
         if host.ndim != 2:
             raise ValueError(f"data must be 2-d, got shape {host.shape}")
         if params.wire_dtype not in (None, "float32"):
             host = bf16_round_np(host)
         self._host_data = host
-        self.data = torch.from_numpy(host).to(self.device)
         self._n = int(host.shape[0])
+        self.shards: Optional[List[torch.Tensor]] = None
+        self.replicas: Optional[List[torch.Tensor]] = None
+        if self._corpus_layout == "sharded":
+            self.data = None  # no entry holds the whole corpus
+            S = len(devs)
+            rps = -(-self._n // S)
+            self.shards = []
+            for s, dv in enumerate(devs):
+                block = host[s * rps : (s + 1) * rps]
+                if len(block) < rps:
+                    block = np.concatenate([block, np.repeat(host[:1], rps - len(block), axis=0)])
+                self.shards.append(torch.from_numpy(block).to(dv))
+        elif self._corpus_layout == "replicated":
+            t = torch.from_numpy(host)
+            self.replicas = [t.to(dv) for dv in devs]
+            self.data = self.replicas[0]
+        else:
+            self.data = torch.from_numpy(host).to(self.device)
         self.clusters: List[Cluster] = []
         seed = (params.rng_seed if params.rng_seed is not None
                 else np.random.SeedSequence().entropy % (2**63))
@@ -309,11 +423,6 @@ class HierarchicalClustering:
         )
 
     def fit(self) -> "HierarchicalClustering":
-        if self.params.replication != "final" or self.params.max_split_ways == 2:
-            raise NotImplementedError(
-                "only replication='final' with multi-way splits is ported "
-                "(ROADMAP queue 1: nested/binary subdivision)"
-            )
         n = self._n
         k = self.params.initial_k
         if k > n:
@@ -325,11 +434,19 @@ class HierarchicalClustering:
         with timer.phase("fit/init", block=True):
             self._initialize_clusters(k)
         with timer.phase("fit/assign+medoid", block=True):
-            self._assign_and_update_fused()
+            if self.devices:
+                self._assign_and_update_sharded()
+            elif self.params.replication == "nested":
+                # Closure masks are multi-membership: the two-step path.
+                self._assign_points()
+                self._update_centroids()
+            else:
+                self._assign_and_update_fused()
         with timer.phase("fit/subdivide", block=True):
-            self._subdivide_multiway(int(cap))
-        with timer.phase("fit/replica_pass", block=True):
-            self._finalize_replication()
+            self._subdivide_clusters(int(cap))
+        if self.params.replication == "final":
+            with timer.phase("fit/replica_pass", block=True):
+                self._finalize_replication()
         return self
 
     def labels(self) -> np.ndarray:
@@ -351,19 +468,63 @@ class HierarchicalClustering:
         return labels
 
     def centroid_vectors(self) -> torch.Tensor:
-        idx = torch.as_tensor([c.centroid_idx for c in self.clusters], dtype=torch.int64,
-                              device=self.device)
-        return self.data[idx]
+        """(C, d) centroid vectors on ``device`` (the first entry); in the
+        sharded layout gathered from the host mirror, the same grid as
+        the shards."""
+        idx = np.asarray([c.centroid_idx for c in self.clusters], np.int64)
+        if self.data is None:
+            return torch.from_numpy(self._host_data[idx]).to(self.device)
+        return self.data[torch.from_numpy(idx).to(self.device)]
 
     # -- internals
+
+    def _row_shards(self) -> List[torch.Tensor]:
+        """The corpus as one (rps, d) row block an entry, the last padded
+        with copies of row 0: the sharded layout's own blocks, or slices of
+        the replicated layout's copies."""
+        if self.shards is not None:
+            return self.shards
+        rps = -(-self._n // len(self.devices))
+        out = []
+        for s, X in enumerate(self.replicas):
+            block = X[s * rps : (s + 1) * rps]
+            if block.shape[0] < rps:
+                block = torch.cat([block, X[:1].expand(rps - block.shape[0], -1)])
+            out.append(block)
+        return out
 
     def _initialize_clusters(self, k: int) -> None:
         rng = self._level_rng(0)
         if self.params.initialization_method == RANDOM:
             idx = _random_init(self._n, k, rng)
+        elif self.shards is not None:
+            from spfresh_tpu_torch.parallel import build as pbuild
+
+            idx = pbuild.kmeanspp_init_sharded(self.devices, self.shards, k,
+                                               self.params.metric, self._n, rng)
         else:
             idx = _kmeanspp_init(self.data, k, self.params.metric, rng)
         self.clusters = [Cluster(int(i), np.empty((0,), np.int64), 0) for i in idx]
+
+    def _assign_points(self) -> None:
+        """Closure assignment (``"nested"``): every point joins its nearest
+        cluster and each one within the closure rule."""
+        mask = _np(_assign_with_closure(self.data, self.centroid_vectors(), self.params.metric,
+                                        self.params.boundary_threshold))
+        for j, c in enumerate(self.clusters):
+            c.points = np.flatnonzero(mask[:, j]).astype(np.int64)
+
+    def _update_centroids(self) -> None:
+        """Medoid update from the current (possibly overlapping) members."""
+        mask = np.zeros((self._n, len(self.clusters)), dtype=bool)
+        for j, c in enumerate(self.clusters):
+            mask[c.points, j] = True
+        old = torch.as_tensor([c.centroid_idx for c in self.clusters], dtype=torch.int64,
+                              device=self.device)
+        new = _np(_medoid_update(self.data, torch.from_numpy(mask).to(self.device), old,
+                                 self.params.metric))
+        for j, c in enumerate(self.clusters):
+            c.centroid_idx = int(new[j])
 
     def _assign_and_update_fused(self) -> None:
         old = torch.as_tensor([c.centroid_idx for c in self.clusters], dtype=torch.int64,
@@ -377,6 +538,53 @@ class HierarchicalClustering:
             c.points = np.flatnonzero(best == j).astype(np.int64)
             c.centroid_idx = int(new[j])
 
+    def _assign_and_update_sharded(self) -> None:
+        """Device-list path: one assign + medoid round over the row shards
+        (closure replicas under ``"nested"``)."""
+        from spfresh_tpu_torch.parallel.cluster_step import sharded_cluster_step
+
+        n = self._n
+        masks, _, rows = sharded_cluster_step(
+            self.devices, self._row_shards(), self.centroid_vectors(),
+            boundary_threshold=self.params.boundary_threshold, metric=self.params.metric,
+            closure=self.params.replication == "nested",
+        )
+        mask = torch.cat([m.cpu() for m in masks]).numpy()[:n]
+        rows = _np(rows)
+        for j, c in enumerate(self.clusters):
+            c.points = np.flatnonzero(mask[:, j]).astype(np.int64)
+            if 0 <= rows[j] < n:
+                c.centroid_idx = int(rows[j])
+
+    def _replica_topk(self, base: np.ndarray, cents: torch.Tensor, n_extra: int,
+                      bf16_wire: bool):
+        """(idx, dists) (n, n_extra) of the closure pass, on the host."""
+        metric = canonical_metric(self.params.metric)
+        soar = float(self.params.soar_lambda or 0.0)
+        bt = float(np.float32(self.params.boundary_threshold))
+        if self.devices:
+            from spfresh_tpu_torch.parallel.cluster_step import sharded_replica_pass
+
+            shards = self._row_shards()
+            rps = shards[0].shape[0]
+            bp = np.concatenate([base, np.repeat(base[:1], rps * len(shards) - self._n)])
+            bp = bp.astype(np.int32)
+            X_sh = [x.to(torch.bfloat16) if bf16_wire else x for x in shards]
+            b_sh = [torch.from_numpy(bp[s * rps : (s + 1) * rps]).to(x.device)
+                    for s, x in enumerate(shards)]
+            idx, dists = sharded_replica_pass(self.devices, X_sh, b_sh, cents, metric, bt,
+                                              n_extra, soar_lambda=soar)
+            return (torch.cat([t.cpu() for t in idx]).numpy()[: self._n],
+                    torch.cat([t.cpu() for t in dists]).numpy()[: self._n])
+        X = self.data.to(torch.bfloat16) if bf16_wire else self.data
+        base_dev = torch.from_numpy(base.astype(np.int32)).to(self.device)
+        if metric == EUCLIDEAN and n_extra <= MAX_EXTRA:
+            idx, dists = replica_topk(X, base_dev, cents, bt, n_extra, soar_lambda=soar)
+        else:
+            idx, dists = replica_topk_elementwise(X, base_dev, cents, bt, n_extra, metric,
+                                                  soar_lambda=soar)
+        return _np(idx), _np(dists)
+
     def _finalize_replication(self) -> None:
         """One global closure pass adding at most max_replicas - 1 replicas
         per point on top of its base cluster, then the per-cluster budget."""
@@ -386,7 +594,6 @@ class HierarchicalClustering:
         timer = self._timer
         n = self._n
         metric = canonical_metric(self.params.metric)
-        soar = float(self.params.soar_lambda or 0.0)
         # bf16 inputs when the corpus rode the bf16 wire: its coordinates
         # are bf16-representable, so the cast is lossless and the kernel
         # streams half the bytes; products stay exact in f32.
@@ -397,19 +604,11 @@ class HierarchicalClustering:
                 base[c.points] = ci
             idx_np = np.asarray([c.centroid_idx for c in self.clusters], np.int64)
             cents = torch.from_numpy(self._host_data[idx_np]).to(self.device)
-            X = self.data
             if bf16_wire:
-                cents, X = cents.to(torch.bfloat16), X.to(torch.bfloat16)
-            base_dev = torch.from_numpy(base.astype(np.int32)).to(self.device)
-        bt = float(np.float32(self.params.boundary_threshold))
+                cents = cents.to(torch.bfloat16)
         with timer.phase("replica/device+pull", block=True):
-            if metric == EUCLIDEAN and n_extra <= MAX_EXTRA:
-                idx, dists = replica_topk(X, base_dev, cents, bt, n_extra, soar_lambda=soar)
-            else:
-                idx, dists = replica_topk_elementwise(X, base_dev, cents, bt, n_extra, metric,
-                                                      soar_lambda=soar)
+            idx, dists = self._replica_topk(base, cents, n_extra, bf16_wire)
             metrics.inc(f"build.replica_engine.{self.device.type}")
-            idx, dists = _np(idx), _np(dists)
         with timer.phase("replica/host_budget"):
             valid = np.isfinite(dists)
             pts = np.broadcast_to(np.arange(n)[:, None], idx.shape)[valid]
@@ -432,12 +631,20 @@ class HierarchicalClustering:
                 if len(extra):
                     c.points = np.sort(np.concatenate([c.points, extra]))
 
+    def _subdivide_clusters(self, cap: int) -> None:
+        if self.params.replication == "nested" or self.params.max_split_ways == 2:
+            # The reference's binary splits (the in-split closure needs the
+            # two-seed geometry).
+            self._subdivide_binary(cap)
+        else:
+            self._subdivide_multiway(cap)
+
     def _subdivide_multiway(self, cap: int) -> None:
         """Level-synchronous M-way subdivision: every oversized cluster at a
         level splits into ~ceil(len/cap) (<= max_split_ways) children."""
         timer = self._timer
         level = 0
-        tail_max = _tail_rows_for(self.device.type, int(self.data.shape[1]))
+        tail_max = _tail_rows_for(self.device.type, int(self._host_data.shape[1]))
         while True:
             oversized = [i for i, c in enumerate(self.clusters) if len(c) > cap]
             if not oversized:
@@ -461,6 +668,25 @@ class HierarchicalClustering:
                         self._host_data, flat_members, cluster_of_np, c1_idx[:nm], m_c,
                         self.params.metric, nm=nm, m_ways=M,
                     )
+            elif self.devices:
+                from spfresh_tpu_torch.parallel import build as pbuild
+
+                with timer.phase("subdiv/kernel", block=True):
+                    if self.shards is not None:
+                        # Members dealt to the shards owning their rows;
+                        # numpy out, in member order.
+                        assign, seeds, counts, d1 = pbuild.sharded_split_level_rows(
+                            self.devices, self.shards, flat_members, cluster_of_np, c1_idx,
+                            seed_valid, self.params.metric, num_segments=S, m_ways=M,
+                        )
+                    else:
+                        assign, seeds, counts, d1 = pbuild.sharded_split_level(
+                            self.devices, self.replicas, flat_members, cluster_of_np,
+                            np.ones(P, bool), c1_idx, seed_valid, self.params.metric,
+                            num_segments=S, m_ways=M,
+                        )
+                with timer.phase("subdiv/transfer"):
+                    assign, seeds, counts = _np(assign), _np(seeds), _np(counts)[:nm]
             else:
                 dev = self.device
                 with timer.phase("subdiv/kernel", block=True):
@@ -533,3 +759,65 @@ class HierarchicalClustering:
                     new_tail.append(Cluster(cidx, pts_, depth))
             self.clusters.extend(new_tail)
 
+    def _subdivide_binary(self, cap: int) -> None:
+        """Level-synchronous binary subdivision (``max_split_ways`` 2 or
+        ``"nested"``): every oversized cluster splits in two at each level,
+        with the in-split closure under ``"nested"``; a split with an empty
+        or a whole child falls back to an exact balanced median split on
+        the distance to seed 1.  Runs on ``device`` (the replicated
+        layout's first copy on a device list)."""
+        timer = self._timer
+        closure = self.params.replication == "nested"
+        dev = self.device
+        level = 0
+        while True:
+            oversized = [i for i, c in enumerate(self.clusters) if len(c) > cap]
+            if not oversized:
+                break
+            level += 1
+            with timer.phase("subdiv/host_prep"):
+                members = [self.clusters[i].points for i in oversized]
+                nm = len(members)
+                lens = np.array([len(m) for m in members])
+                bounds = np.zeros(nm + 1, np.int64)
+                np.cumsum(lens, out=bounds[1:])
+                P = int(bounds[-1])
+                flat_members = np.concatenate(members)
+                cluster_of = np.repeat(np.arange(nm, dtype=np.int64), lens)
+                # A random member as seed 1 of each cluster: the same host
+                # draw as the multi-way levels.
+                offs = self._level_rng(1000 + level).integers(0, np.maximum(lens, 1))
+                c1_idx = flat_members[bounds[:-1] + offs]
+            with timer.phase("subdiv/kernel", block=True):
+                m1, m2, c2_idx, degenerate, d1 = _split_level_flat(
+                    self.data,
+                    torch.from_numpy(flat_members).to(dev),
+                    torch.from_numpy(cluster_of).to(dev),
+                    torch.ones(P, dtype=torch.bool, device=dev),
+                    torch.from_numpy(c1_idx).to(dev),
+                    self.params.metric, self.params.boundary_threshold,
+                    closure=closure, num_segments=nm,
+                )
+            with timer.phase("subdiv/transfer"):
+                m1, m2, c2_idx, degenerate = _np(m1), _np(m2), _np(c2_idx), _np(degenerate)
+                d1 = _np(d1) if degenerate.any() else None
+            with timer.phase("subdiv/host_build"):
+                cnt1 = np.add.reduceat(m1.astype(np.int64), bounds[:-1])
+                cnt2 = np.add.reduceat(m2.astype(np.int64), bounds[:-1])
+                parts1 = np.split(flat_members[m1], np.cumsum(cnt1)[:-1])
+                parts2 = np.split(flat_members[m2], np.cumsum(cnt2)[:-1])
+                new_tail: List[Cluster] = []
+                for r, ci in enumerate(oversized):
+                    depth = self.clusters[ci].depth + 1
+                    if degenerate[r]:
+                        lo, hi = int(bounds[r]), int(bounds[r + 1])
+                        mem = members[r]
+                        order = np.argsort(d1[lo:hi], kind="stable")
+                        sel = np.zeros(len(mem), bool)
+                        sel[order[: (len(mem) + 1) // 2]] = True
+                        pts1, pts2 = mem[sel], mem[~sel]
+                    else:
+                        pts1, pts2 = parts1[r], parts2[r]
+                    self.clusters[ci] = Cluster(int(c1_idx[r]), pts1, depth)
+                    new_tail.append(Cluster(int(c2_idx[r]), pts2, depth))
+                self.clusters.extend(new_tail)

@@ -15,9 +15,16 @@ sees one row tile at a time, the centroid matrix and O(tile) state.
    supplied; other metrics and counts the unfused
    ``replica_topk_elementwise``.
 
+With ``devices`` (a list of entries; an entry may repeat a device) the
+two streamed passes keep one centroid copy an entry and deal their tiles
+round-robin over the entries, each tile's kernel launched on its entry,
+with a window of ``max(4, 2 * entries)`` tiles in flight; the results are
+identical for any entry count.  The sample fit and the rebalance stay on
+the first entry and the host.
+
 Same seeds, draws, tie-breaks and budget as the JAX package, so the same
 sample-fit seeds give the same clusters.  Not carried over: the transfer
-accounting and the multi-device round-robin (one device per build).
+accounting.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from spfresh_tpu_torch.clustering.hierarchical import (
     _split_level_multiway_host,
 )
 from spfresh_tpu_torch.clustering.utils import budget_sort, next_pow2
-from spfresh_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+from spfresh_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device, resolve_entries
 from spfresh_tpu_torch.core.dtypes import bf16_round_np
 from spfresh_tpu_torch.ops.distances import EUCLIDEAN, canonical_metric
 from spfresh_tpu_torch.ops.replica import (
@@ -96,14 +103,18 @@ def fit_outofcore(
     tile_rows: int = DEFAULT_TILE_ROWS,
     timer=None,
     device: torch.device | str = DEFAULT_DEVICE,
+    devices=None,
 ) -> OutOfCoreResult:
     """SPANN clusters for a host-resident corpus.
 
     ``data``: a 2-d float32 array-like with row slicing and fancy row
     indexing (an ndarray, an ``np.memmap``), read in bounded slices and never
     uploaded whole.  ``timer``: a ``PhaseTimer`` for the ``oc/*`` phases.
-    Deterministic for a fixed ``params.rng_seed``."""
-    device = resolve_device(device)
+    ``devices``: entries the streamed passes deal their tiles over (the
+    first takes the place of ``device``).  Deterministic for a fixed
+    ``params.rng_seed``, whatever the entries."""
+    devs = resolve_entries(devices) if devices is not None else [resolve_device(device)]
+    device = devs[0]
     n, d = data.shape
     if sample_rows < params.initial_k:
         raise ValueError(f"sample_rows={sample_rows} < initial_k={params.initial_k}")
@@ -140,7 +151,7 @@ def fit_outofcore(
         del hc  # frees the sample's device copy
 
     with _p("oc/assign"):
-        base, db = _stream_base(data, cents_np, params.metric, tile_rows, wire, device)
+        base, db = _stream_base(data, cents_np, params.metric, tile_rows, wire, devs)
 
     with _p("oc/split"):
         cent_rows, cents_np, base, db, num_splits = _host_rebalance(
@@ -151,7 +162,7 @@ def fit_outofcore(
     if n_extra > 0:
         with _p("oc/replica"):
             extras = _stream_replicas(data, cents_np, base, db, params, n_extra, tile_rows,
-                                      wire, device)
+                                      wire, devs)
     else:
         extras = (np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.float32))
 
@@ -161,24 +172,40 @@ def fit_outofcore(
                            base=base, sample_centroid_rows=sample_centroid_rows)
 
 
-def _stream_base(data, cents_np, metric, tile_rows, wire, device):
+def _window(devs) -> int:
+    """Tiles in flight before the oldest is read back."""
+    return max(4, 2 * len(devs))
+
+
+def _stream_base(data, cents_np, metric, tile_rows, wire, devs):
     """(base (n,) int32, db (n,) f32): the nearest centroid of every row,
-    one tile at a time."""
+    one tile at a time, tiles dealt round-robin over ``devs``."""
     n = data.shape[0]
     metric = canonical_metric(metric)
     dd = _dev_dtype(wire, metric)
-    cents = torch.from_numpy(cents_np).to(device).to(dd)
+    cents = [torch.from_numpy(cents_np).to(dv).to(dd) for dv in devs]
     base = np.empty(n, np.int32)
     db = np.empty(n, np.float32)
-    for s in range(0, n, tile_rows):
+    pending = []
+
+    def drain(item):
+        s0, e0, b0, d0 = item
+        base[s0:e0] = b0.cpu().numpy()
+        db[s0:e0] = d0.cpu().numpy()
+
+    for ti, s in enumerate(range(0, n, tile_rows)):
         e = min(s + tile_rows, n)
-        Xt = _stage_tile(data, s, e, wire, device, dd)
+        dv = devs[ti % len(devs)]
+        Xt = _stage_tile(data, s, e, wire, dv, dd)
         if metric == EUCLIDEAN:
-            b, dist = nearest_centroid(Xt, cents)
+            b, dist = nearest_centroid(Xt, cents[ti % len(devs)])
         else:
-            b, dist = chunked_nearest_centroid(Xt, cents, metric)
-        base[s:e] = b.cpu().numpy()
-        db[s:e] = dist.cpu().numpy()
+            b, dist = chunked_nearest_centroid(Xt, cents[ti % len(devs)], metric)
+        pending.append((s, e, b, dist))
+        if len(pending) >= _window(devs):
+            drain(pending.pop(0))
+    for item in pending:
+        drain(item)
     return base, db
 
 
@@ -283,36 +310,49 @@ def _host_rebalance(data, cent_rows, cents_np, base, db, cap, params, wire, seed
     return cent_rows, cents_np, base, db, num_splits
 
 
-def _stream_replicas(data, cents_np, base, db, params, n_extra, tile_rows, wire, device):
-    """Closure replicas of every row, one tile at a time, with the base
-    distances of the assignment (and of the rebalance) supplied as ``db``.
-    Returns the flat (points, clusters, ranks) of every admitted replica."""
+def _stream_replicas(data, cents_np, base, db, params, n_extra, tile_rows, wire, devs):
+    """Closure replicas of every row, one tile at a time (tiles dealt
+    round-robin over ``devs``), with the base distances of the assignment
+    (and of the rebalance) supplied as ``db``.  Returns the flat (points,
+    clusters, ranks) of every admitted replica."""
     n = data.shape[0]
     metric = canonical_metric(params.metric)
     dd = _dev_dtype(wire, metric)
-    cents = torch.from_numpy(cents_np).to(device).to(dd)
+    cents = [torch.from_numpy(cents_np).to(dv).to(dd) for dv in devs]
     bt = float(np.float32(params.boundary_threshold))
     soar = float(params.soar_lambda or 0.0)
     fused = metric == EUCLIDEAN and n_extra <= MAX_EXTRA
     pts_l: List[np.ndarray] = []
     cls_l: List[np.ndarray] = []
     d_l: List[np.ndarray] = []
-    for s in range(0, n, tile_rows):
-        e = min(s + tile_rows, n)
-        Xt = _stage_tile(data, s, e, wire, device, dd)
-        base_t = torch.from_numpy(np.ascontiguousarray(base[s:e], np.int32)).to(device)
-        db_t = torch.from_numpy(np.ascontiguousarray(db[s:e], np.float32)).to(device)
-        if fused:
-            i0, d0 = replica_topk(Xt, base_t, cents, bt, n_extra, db=db_t, soar_lambda=soar)
-        else:
-            i0, d0 = replica_topk_elementwise(Xt, base_t, cents, bt, n_extra, metric, db=db_t,
-                                              soar_lambda=soar)
+    pending = []
+
+    def drain(item):
+        s0, e0, i0, d0 = item
         idx, dists = i0.cpu().numpy(), d0.cpu().numpy()
         valid = np.isfinite(dists)
-        rows = np.broadcast_to(np.arange(s, e)[:, None], idx.shape)
+        rows = np.broadcast_to(np.arange(s0, e0)[:, None], idx.shape)
         pts_l.append(rows[valid].astype(np.int64))
         cls_l.append(idx[valid].astype(np.int64))
         d_l.append(dists[valid])
+
+    for ti, s in enumerate(range(0, n, tile_rows)):
+        e = min(s + tile_rows, n)
+        dv = devs[ti % len(devs)]
+        Xt = _stage_tile(data, s, e, wire, dv, dd)
+        base_t = torch.from_numpy(np.ascontiguousarray(base[s:e], np.int32)).to(dv)
+        db_t = torch.from_numpy(np.ascontiguousarray(db[s:e], np.float32)).to(dv)
+        c = cents[ti % len(devs)]
+        if fused:
+            i0, d0 = replica_topk(Xt, base_t, c, bt, n_extra, db=db_t, soar_lambda=soar)
+        else:
+            i0, d0 = replica_topk_elementwise(Xt, base_t, c, bt, n_extra, metric, db=db_t,
+                                              soar_lambda=soar)
+        pending.append((s, e, i0, d0))
+        if len(pending) >= _window(devs):
+            drain(pending.pop(0))
+    for item in pending:
+        drain(item)
     return (
         np.concatenate(pts_l) if pts_l else np.empty(0, np.int64),
         np.concatenate(cls_l) if cls_l else np.empty(0, np.int64),

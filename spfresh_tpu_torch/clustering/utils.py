@@ -18,6 +18,25 @@ def masked_means(data: torch.Tensor, member_mask: torch.Tensor) -> torch.Tensor:
     return sums / torch.clamp_min(counts, 1.0)
 
 
+def seg_max(vals: torch.Tensor, seg: torch.Tensor, S: int) -> torch.Tensor:
+    """(S,) maximum of ``vals`` per segment ``seg``; -inf for an empty one."""
+    return torch.full((S,), float("-inf"), dtype=vals.dtype, device=vals.device).scatter_reduce(
+        0, seg, vals, "amax")
+
+
+def seg_min(vals: torch.Tensor, seg: torch.Tensor, S: int, init: int) -> torch.Tensor:
+    """(S,) minimum of ``vals`` per segment ``seg``; ``init`` for an empty
+    one (and an upper bound of every value)."""
+    return torch.full((S,), init, dtype=vals.dtype, device=vals.device).scatter_reduce(
+        0, seg, vals, "amin")
+
+
+def seg_sum(vals: torch.Tensor, seg: torch.Tensor, S: int) -> torch.Tensor:
+    """(S, ...) sum of ``vals`` per segment ``seg``."""
+    return torch.zeros((S,) + vals.shape[1:], dtype=vals.dtype, device=vals.device).index_add_(
+        0, seg, vals)
+
+
 def next_pow2(x: int) -> int:
     """Smallest power of two >= x (>= 1)."""
     if x <= 1:

@@ -1,12 +1,34 @@
-"""Multi-device serving (counterpart of ``spfresh_tpu/parallel``).
+"""Multi-device serving and build (counterpart of ``spfresh_tpu/parallel``).
 
-``ShardedSpannIndex`` shards an index's posting lists over a list of
-devices driven by one process.  ``replicate`` and ``shard_rows`` of the
-JAX package place arrays on a ``Mesh`` and have no counterpart here; the
-sharded build (``sharded_cluster_step``, ``sharded_replica_pass``) is not
-ported yet.
+One process drives a list of devices; an entry may repeat a device.
+
+* ``ShardedSpannIndex`` shards an index's posting lists over the list.
+* ``sharded_cluster_step`` and ``sharded_replica_pass`` (``cluster_step``)
+  run the build's assign + medoid round and its closure-replica pass over
+  row shards; ``sharded_split_level``, ``sharded_split_level_rows`` and
+  ``kmeanspp_init_sharded`` (``build``) its subdivision levels and
+  KMeans++ seeding.  ``HierarchicalClustering(devices=...)`` and
+  ``SpannIndexBuilder(devices=...)`` drive them.
+
+``replicate`` and ``shard_rows`` of the JAX package place arrays on a
+``Mesh`` and have no counterpart here; neither have the mesh-resident
+split and apply calls.
 """
 
+from spfresh_tpu_torch.parallel.build import (
+    kmeanspp_init_sharded,
+    sharded_split_level,
+    sharded_split_level_rows,
+)
+from spfresh_tpu_torch.parallel.cluster_step import sharded_cluster_step, sharded_replica_pass
 from spfresh_tpu_torch.parallel.sharded import ShardedSpannIndex, default_devices
 
-__all__ = ["ShardedSpannIndex", "default_devices"]
+__all__ = [
+    "ShardedSpannIndex",
+    "default_devices",
+    "kmeanspp_init_sharded",
+    "sharded_cluster_step",
+    "sharded_replica_pass",
+    "sharded_split_level",
+    "sharded_split_level_rows",
+]

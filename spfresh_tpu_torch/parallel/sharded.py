@@ -39,7 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from spfresh_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+from spfresh_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device, resolve_entry
 from spfresh_tpu_torch.index.spann import (
     _UPDATE_ROWS,
     PaddedView,
@@ -61,13 +61,6 @@ def default_devices() -> List[torch.device]:
     ``resolve_device`` does: nothing falls back to the CPU."""
     resolve_device(DEFAULT_DEVICE)
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-
-
-def _device(d) -> torch.device:
-    dev = resolve_device(d)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 @dataclasses.dataclass
@@ -116,7 +109,7 @@ class ShardedSpannIndex:
         the CPU tests pass ``["cpu"] * 8``)."""
         self.index = index
         self.metric = index.metric
-        devs = default_devices() if devices is None else [_device(d) for d in devices]
+        devs = default_devices() if devices is None else [resolve_entry(d) for d in devices]
         if not devs:
             raise ValueError("no devices")
         if len({d.type for d in devs}) != 1:

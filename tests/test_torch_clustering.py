@@ -91,14 +91,6 @@ def test_port_seeding_is_deterministic():
     assert members == set(range(1500))  # every point sits in some cluster
 
 
-def test_unported_split_modes_raise():
-    data = _data(3, n=200)
-    for kw in ({"replication": "nested"}, {"max_split_ways": 2}):
-        params = th.ClusteringParams(desired_cluster_size=50, rng_seed=1, **kw)
-        with pytest.raises(NotImplementedError):
-            th.HierarchicalClustering(params, data, device="cpu").fit()
-
-
 def test_params_validation_matches_reference():
     for kw in ({"initial_k": 0}, {"max_replicas": 0}, {"max_split_ways": 1},
                {"max_split_ways": 129}, {"soar_lambda": -1.0},
