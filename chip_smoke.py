@@ -15,7 +15,7 @@ Phases, each printing a line:
               on and off, n_extra 1 to 8, db given and computed, centroids
               near points), and beside each the cuBLAS time of its
               products alone (gemm_ms, a yardstick the port never calls);
-              the slab rerank also at its edges (d_pad 16, 112 and 1,024,
+              the slab rerank also at its edges (d_pad 16, 32, 112 and 1,024,
               f32, bf16 and int8, every metric, a pad no tile divides and
               one that wraps the ring, one slab under 4,096 pairs, one
               pair, out-of-range rows giving NaN rows), and its slab-major
@@ -36,7 +36,29 @@ Phases, each printing a line:
               search of 8,192 queries in one batch (the probe axis taken
               in chunks; peak memory logged) whose first 64 rows must equal
               an unchunked search.
-5. shardbuild — the build over a device list of 4 entries, every one cuda:0
+5. examples — the seven example CLIs (spfresh_tpu_torch.examples) in this
+              process with --device cuda, each one's stdout and wall logged:
+              build_index then load_index in a temporary working directory
+              (point_id 0 both times), live_updates (a posting split, the
+              hot-spot inserts found), disk_updates (the self-query returns
+              0 after compact()), quantized_index (float32 and int8),
+              sharded_search (8 entries of the card: self-NN exact, the
+              in-place insert found), then sift_eval at main's scale through
+              files: main's corpus, 1,024 of its queries and their exact top
+              10 written as fvecs/ivecs with the port's writers and read by
+              the native reader, built with main's config (cluster size 256,
+              initial_k 16, bf16).  Gates: every contract above, sift_eval's
+              clusters equal main's (0 differ), its ids at nprobe 32 equal
+              main's index's up to f64 ties and its printed recall theirs,
+              that recall at least main's at its recall point, and the float
+              rerank, the int8 rerank and the replica kernel launched in the
+              phase.  Every launch of those kernels in the phase is recorded
+              (its inputs copied at the call); after the counts are read,
+              each recorded call under 64 MiB of inputs (all but sift_eval's,
+              which run main's shapes, held in `kernels` and `main`) runs
+              again against its plain version: the rerank within
+              RERANK_RTOL, the replica lists by replica_compare.
+6. shardbuild — the build over a device list of 4 entries, every one cuda:0
               (spfresh_tpu_torch.parallel): main's corpus and config built
               in-core in both corpus layouts (sharded: a quarter of the rows
               an entry; replicated: a copy on each, the first handed to the
@@ -60,7 +82,7 @@ Phases, each printing a line:
               at that tile against the sample fit's centroids, the L1/Linf
               kernel on a Manhattan shard's assign block and its replica
               pass's first row block.
-6. disk     — main's index saved packed under build/ (deleted after) and
+7. disk     — main's index saved packed under build/ (deleted after) and
               served from disk by LazySpannIndex on the card: the centroid
               matrix on the device, each batch's unique probed slabs staged
               by the native reader, cast to bf16 on the host and reranked
@@ -84,7 +106,7 @@ Phases, each printing a line:
               a compact() leave the same live postings and the same ids
               (up to f64 ties, tie_explained); recall before and after
               against brute force on the mutated corpus.
-7. live     — live updates on main's index through
+8. live     — live updates on main's index through
               spfresh_tpu_torch.lire.SpFreshIndex (LireConfig max 512, min
               16, a store under build/ deleted after): benchmarks/
               streaming_updates.py's traffic (20,000 inserts in batches of
@@ -97,7 +119,7 @@ Phases, each printing a line:
               or repeated id; recall before and after against brute force
               on the mutated corpus.  Then 5,000 inserts and 2,000 deletes
               on a 262,144-row int8 index and the same repack gate.
-8. sharded  — multi-device serving: main's index as live left it in a
+9. sharded  — multi-device serving: main's index as live left it in a
               ShardedSpannIndex, 4 shards on cuda:0 when the card is alone
               (one shard a card otherwise), batch 8,192.  Global nprobe at
               main's recall point on 16,384 queries: the rerank launched
@@ -122,7 +144,7 @@ Phases, each printing a line:
               to the same shards on the CPU up to f64 ties on the
               dequantized rows, with the distances of rows of equal ids
               within RERANK_RTOL.
-9. large    — the same generator at 4,194,304 x 128 (4,194 centers) with
+10. large   — the same generator at 4,194,304 x 128 (4,194 centers) with
               int8 (IVF-SQ8) storage: more than 32,768 clusters, so stage 1
               takes the windowed centroid scan and the rerank its quantized
               path; ground truth, the nprobe sweep to recall@10 >= 0.80
@@ -140,17 +162,17 @@ Phases, each printing a line:
               index is then saved packed and searched lazily on the card
               (window scan and quantized rerank launched, recall within
               0.01 of the in-memory search, 1,000 queries against the CPU).
-10. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
+11. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
               d 960, 16,384 queries, seed 12345), a Manhattan bf16 build:
               the L1/Linf pairwise kernel runs the build's assignments,
               the closure pass, stage 1 and the ground truth; the sweep
               to recall@10 >= 0.90, the bf16 rerank against its plain
               version on the phase's slabs (d_pad 1,024) and stage-1 rows,
               and the device-time breakdown.
-11. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
+12. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
               sweep is printed (no target: Chebyshev plateaus on this data)
               and the rerank checked on the phase's slabs at nprobe 48.
-12. outofcore — benchmarks/outofcore_build_bench.py's corpus (4,194,304 x 96,
+13. outofcore — benchmarks/outofcore_build_bench.py's corpus (4,194,304 x 96,
               a memmap under build/) built out-of-core through
               Config.build_sample_rows (sample 1,048,576, tile 262,144, cap
               256, bf16): one nearest-centroid launch per tile, the replica
@@ -165,7 +187,7 @@ Phases, each printing a line:
               window scan and float rerank launched, recall within 0.01 of
               the in-memory search, 1,000 queries against the CPU, peak
               device memory under an eighth of the view's slab bytes.
-13. exact   — a 20k f32 index: full-probe search must have recall exactly 1.0
+14. exact   — a 20k f32 index: full-probe search must have recall exactly 1.0
               (Euclidean; Manhattan and Chebyshev at d 960, where a miss is
               allowed only as a tie, shown in f64).
 
@@ -176,6 +198,7 @@ the card's name and power limit, the kernel report and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import subprocess
@@ -248,6 +271,9 @@ PHASE_T0 = [0.0]  # the disk phase's start, for the seconds its lines carry
 # Queries of the lazy timings that only give a rate (prefetch 0), so the
 # added searches stay inside the run's time.
 TIMING_NQ = 4096
+SIFT_NQ = 1024  # main's queries that the examples phase's sift_eval reads from a file
+EXAMPLES = ("build_index", "load_index", "live_updates", "disk_updates", "quantized_index",
+            "sharded_search", "sift_eval")
 DEVICE = "cuda"
 
 
@@ -466,7 +492,7 @@ def rerank_compare(torch, queries, rows, slabs, metric: str, **kw) -> tuple:
     want = rerank.padded_rerank_distances_plain(queries, torch.where(bad, 0, rows), slabs,
                                                 metric, **kw)
     torch.cuda.synchronize()
-    assert bool(torch.isnan(got[bad]).all()), f"{tag}: an out-of-range row did not give NaN"
+    assert bool(torch.isnan(got[bad]).all()), "an out-of-range row did not give NaN"
     got, want = got[~bad], want[~bad]
     assert bool(torch.isfinite(got).all()), "the kernel left a non-finite distance"
     err = (got - want).abs()
@@ -478,7 +504,7 @@ def rerank_compare(torch, queries, rows, slabs, metric: str, **kw) -> tuple:
 def rerank_edge_cases(torch) -> None:
     """The rerank (float and int8 cases) against its plain version where the
     schedule and the tile ring have edges, within RERANK_RTOL: d_pad 16,
-    112 and 1,024 for f32, bf16 and int8 slabs and every metric, at a pad
+    32 (the disk tier's at d 32), 112 and 1,024 for f32, bf16 and int8 slabs and every metric, at a pad
     that no row tile divides (37) and one that wraps the ring (1,100);
     d_pad 1,536, 2,048 and 4,096 (rows taken in column slices) at pads 37
     and 300; every pair on one slab (many work items for one slab); one
@@ -506,7 +532,8 @@ def rerank_edge_cases(torch) -> None:
         return q, rows, slabs, kw
 
     worst, n = 0.0, 0
-    for d_pad, pads in ((16, (37, 1100)), (112, (37, 1100)), (1024, (37, 1100)),
+    for d_pad, pads in ((16, (37, 1100)), (32, (37, 1100)), (112, (37, 1100)),
+                        (1024, (37, 1100)),
                         (1536, (37, 300)), (2048, (37, 300)), (4096, (37, 300))):
         for sd in (torch.float32, torch.bfloat16, torch.int8):
             geo = rerank.kernel_geometry(d_pad, sd)
@@ -732,7 +759,7 @@ def int8mxu_compare(torch, args, tag: str) -> float:
     want = rerank.padded_rerank_distances_int8mxu_plain(
         *args[:3], torch.where(bad, 0, rows), *args[4:])
     torch.cuda.synchronize()
-    assert bool(torch.isnan(got[bad]).all()), f"{tag}: an out-of-range row did not give NaN"
+    assert bool(torch.isnan(got[bad]).all()), "an out-of-range row did not give NaN"
     got, want = got[~bad], want[~bad]
     assert bool(torch.isfinite(got).all()), f"{tag}: the kernel left a non-finite score"
     if got.numel() == 0:
@@ -1129,7 +1156,225 @@ def phase_main(torch, n: int, nq: int, report) -> None:
         profile_search(torch, index, queries, nprobe)
         kernel_rerank_view(torch, view, queries, nprobe, "Euclidean", "main")
         full_probe_check(torch, index, queries)
-    return index, data, queries, gt, nprobe
+    return index, data, queries, gt, nprobe, rec
+
+
+def run_example(torch, name: str, smi: str, *argv):
+    """``spfresh_tpu_torch.examples.<name>.main([*argv, "--device", "cuda"])``
+    in this process, its stdout captured and logged with its wall; returns
+    (stdout, main's return value)."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"spfresh_tpu_torch.examples.{name}")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = mod.main([*argv, "--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"examples {name}: {line}")
+    log(f"examples {name}: wall {wall:.3f} s ({smi})")
+    return out, ret
+
+
+RECORD_MAX_BYTES = 64 * 2**20  # the examples phase re-checks recorded launches up to this
+
+
+def launches_kernel(name: str, a: dict) -> bool:
+    """Whether the wrapper ``name`` launches its kernel on the bound
+    arguments ``a`` (the conditions under which it adds to its count)."""
+    if name == "padded_rerank_distances":
+        return a["rows"].is_cuda and a["rows"].numel() > 0 and a["vectors3d"].shape[1] > 0
+    return a["X"].is_cuda
+
+
+@contextlib.contextmanager
+def recorded_launches(torch, funcs):
+    """Records each launch of the wrappers ``funcs`` made through any name
+    the port's modules bind them to: the call's arguments (defaults
+    applied), each tensor copied at the call when its tensors total at
+    most RECORD_MAX_BYTES, else None.  Yields {function name: [record]};
+    every name is restored on exit."""
+    import inspect
+
+    records = {f.__name__: [] for f in funcs}
+    patched = []
+    for f in funcs:
+        sig = inspect.signature(f)
+
+        def spy(*args, _f=f, _sig=sig, **kw):
+            bound = _sig.bind(*args, **kw)
+            bound.apply_defaults()
+            a = bound.arguments
+            if launches_kernel(_f.__name__, a):
+                tensors = [v for v in a.values() if isinstance(v, torch.Tensor)]
+                small = sum(t.numel() * t.element_size() for t in tensors) <= RECORD_MAX_BYTES
+                records[_f.__name__].append(
+                    {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in a.items()}
+                    if small else None)
+            return _f(*args, **kw)
+
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith("spfresh_tpu_torch"):
+                for name, val in list(vars(mod).items()):
+                    if val is f:
+                        setattr(mod, name, spy)
+                        patched.append((mod, name, f))
+    try:
+        yield records
+    finally:
+        for mod, name, f in patched:
+            setattr(mod, name, f)
+
+
+def check_recorded(torch, records, report) -> dict:
+    """Each recorded launch (``recorded_launches``) again, against the
+    plain version on the same inputs: the rerank within RERANK_RTOL, the
+    replica lists by replica_compare.  Folds the errors into ``report``
+    and returns {kernel: (launches checked, too large to record)}."""
+    from spfresh_tpu_torch.ops import replica
+
+    out = {k: [0, 0] for k in ("rerank", "rerank_int8", "replica")}
+    for a in records["padded_rerank_distances"]:
+        kind = "rerank" if a is None or a["scales"] is None else "rerank_int8"
+        if a is None:
+            out[kind][1] += 1
+            continue
+        rel, err = rerank_compare(torch, a["queries"], a["rows"], a["vectors3d"], a["metric"],
+                                  scales=a["scales"], centered_queries=a["centered_queries"])
+        cpad, pad, d_pad = a["vectors3d"].shape
+        assert rel <= RERANK_RTOL, (f"examples rerank ({kind}) Q={a['rows'].shape[0]} "
+                                    f"nprobe={a['rows'].shape[1]} pad={pad} d_pad={d_pad}: "
+                                    f"rel err {rel}")
+        report[kind]["max_abs_err"] = max(report[kind]["max_abs_err"], err)
+        out[kind][0] += 1
+    for a in records["replica_topk"]:
+        if a is None:
+            out["replica"][1] += 1
+            continue
+        X, base, cents, lam = a["X"], a["base"], a["cents"], a["soar_lambda"] or 0.0
+        args = (X, base, cents, a["bt"], a["n_extra"])
+        ki, kr = replica.replica_topk(*args, db=a["db"], soar_lambda=lam)
+        pi, pr = replica.replica_topk_plain(*args, db=a["db"], soar_lambda=lam)
+        torch.cuda.synchronize()
+        Xh, Ch = (t.float().cpu().numpy().astype(np.float64) for t in (X, cents))
+        ties, err, rel = replica_compare(Xh, base.cpu().numpy(), Ch, a["bt"],
+                                         *(t.cpu().numpy() for t in (ki, kr, pi, pr)), lam)
+        log(f"examples replica: n={X.shape[0]} C={cents.shape[0]} d={X.shape[1]} {X.dtype} "
+            f"n_extra={a['n_extra']} lambda={lam} db {'given' if a['db'] is not None else 'computed'}"
+            f": near_tie_rows={ties} max_rank_rel_err={rel:.3e}")
+        report["replica"]["max_abs_err"] = max(report["replica"]["max_abs_err"], err)
+        out["replica"][0] += 1
+    return out
+
+
+def phase_examples(torch, index, data, queries, gt, nprobe: int, recall: float,
+                   smi: str, report) -> dict:
+    """The seven example CLIs of spfresh_tpu_torch.examples on the card, in
+    this process, the six toy scripts at their own sizes (build_index and
+    load_index in a temporary working directory) and sift_eval at main's
+    scale through files: main's corpus, SIFT_NQ of its queries and their
+    exact top 10 written as fvecs/ivecs with the port's writers and read
+    back by the native reader.  Gates: each script's contract; sift_eval
+    builds main's clusters (0 differ), its ids at nprobe 32 are main's
+    index's up to f64 ties, its printed recall@10 is theirs and at least
+    main's at its recall point; every launch of the rerank and replica
+    kernels in the phase, recorded at the call, holds against the plain
+    version after the counts are read (sift_eval's, at main's shapes, are
+    too large to record and are held in `kernels` and `main`).  Returns
+    the float rerank, quantized rerank and replica launches of the phase,
+    per report entry."""
+    import importlib
+    import os
+    from pathlib import Path
+
+    from spfresh_tpu_torch.eval import recall_at_k
+    from spfresh_tpu_torch.io import write_fvecs, write_ivecs
+    from spfresh_tpu_torch.ops import rerank, replica
+
+    # Every module that binds a wrapper's name, imported before the names
+    # are recorded.
+    for name in ("clustering.hierarchical", "clustering.outofcore", "parallel.cluster_step",
+                 "index.spann", "index.lazy", "ops.centroid_scan", "lire", "parallel"):
+        importlib.import_module(f"spfresh_tpu_torch.{name}")
+    for name in EXAMPLES:
+        importlib.import_module(f"spfresh_tpu_torch.examples.{name}")
+    rerank.launches = rerank.quantized_launches = replica.launches = 0
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with (tempfile.TemporaryDirectory(dir=scratch, prefix="examples_") as tmp,
+          recorded_launches(torch, (rerank.padded_rerank_distances,
+                                    replica.replica_topk)) as records):
+        cwd = os.getcwd()
+        os.chdir(tmp)  # build_index saves to the config's relative output_path
+        try:
+            out, _ = run_example(torch, "build_index", smi)
+            assert "point_id=0" in out, out
+            out, _ = run_example(torch, "load_index", smi)
+            assert "Nearest neighbour: point_id: 0 " in out, out
+        finally:
+            os.chdir(cwd)
+        out, _ = run_example(torch, "live_updates", smi)
+        lines = out.splitlines()
+        built = int(lines[1].split()[1])
+        after = int(lines[2].split(":")[1].split()[0])
+        nearest = [int(i) for i in lines[3].split("[")[1].rstrip("]").split(",")]
+        assert after > built and all(10_000 <= i < 10_400 for i in nearest), out
+        out, _ = run_example(torch, "disk_updates", smi)
+        assert out.splitlines()[-1] == "self-query after compaction returns id 0", out
+        out, _ = run_example(torch, "quantized_index", smi)
+        q = {line.split()[0]: float(line.split("recall@10=")[1].split()[0])
+             for line in out.splitlines()[1:]}
+        assert set(q) == {"float32", "int8"} and min(q.values()) > 0.8, out
+        out, _ = run_example(torch, "sharded_search", smi)
+        assert "self-NN exact for all 16 queries" in out and "search sees id 90000" in out, out
+
+        t0 = time.perf_counter()
+        files = {k: os.path.join(tmp, f"{k}.{ext}")
+                 for k, ext in (("base", "fvecs"), ("query", "fvecs"), ("gt", "ivecs"))}
+        write_fvecs(files["base"], data)
+        write_fvecs(files["query"], queries[:SIFT_NQ])
+        write_ivecs(files["gt"], gt[:SIFT_NQ].astype(np.int32))
+        log(f"examples sift_eval: {len(data)} x {data.shape[1]} corpus, {SIFT_NQ} queries and "
+            f"their top 10 written in {time.perf_counter() - t0:.2f} s "
+            f"({sum(os.path.getsize(f) for f in files.values()) / 2**20:.1f} MiB)")
+        out, built = run_example(torch, "sift_eval", smi, "--base", files["base"], "--query",
+                                 files["query"], "--gt", files["gt"], "--cluster-size", "256",
+                                 "--initial-k", "16", "--storage-dtype", "bfloat16")
+    counts = {"rerank": rerank.launches, "rerank_int8": rerank.quantized_launches,
+              "replica": replica.launches}
+    log(f"examples: kernel launches in the phase {counts}")
+    assert all(c > 0 for c in counts.values()), counts
+
+    differ = cluster_diff(index, built)
+    got = out.split("recall@10=")[1].split()[0]
+    qs = queries[:SIFT_NQ]
+    want_ids, _ = index.search(qs, 10, nprobe=32)
+    got_ids, _ = built.search(qs, 10, nprobe=32)
+    rows = int((want_ids != got_ids).any(axis=1).sum())
+    unexplained = sharded_ties(index, qs, want_ids, got_ids, 32, "examples sift_eval")
+    rec = recall_at_k(got_ids, gt[:SIFT_NQ], 10)
+    log(f"examples sift_eval: {differ} of {index.num_clusters} clusters differ from main's build; "
+        f"ids at nprobe 32 differ from main's index's in {rows} of {SIFT_NQ} rows "
+        f"({unexplained} not f64 ties); recall@10 at nprobe 32 {got} (its ids {rec:.4f}) "
+        f"against main's {recall:.4f} at nprobe {nprobe}")
+    assert differ == 0, f"sift_eval's build differs from main's in {differ} clusters"
+    assert unexplained == 0, f"sift_eval's ids differ from main's in {unexplained} rows"
+    assert got == f"{rec:.4f}", f"sift_eval printed recall {got}, its ids give {rec:.4f}"
+    assert float(got) >= recall, f"sift_eval recall@10 {got} below main's {recall}"
+    del built
+
+    checked = check_recorded(torch, records, report)
+    log(f"examples: launches held against the plain versions (checked, too large to record) "
+        f"{checked}")
+    for kind, c in counts.items():
+        assert sum(checked[kind]) == c, f"examples {kind}: {checked[kind]} recorded of {c} launches"
+        assert checked[kind][0] > 0, f"examples {kind}: no launch small enough to check"
+    return counts
 
 
 def latent_rows(seed: int, n: int, rows: int, d: int = GIST_D, latent: int = GIST_LATENT,
@@ -2994,13 +3239,21 @@ def main() -> int:
     assert not torch.backends.cuda.matmul.allow_tf32, "plain versions must not run in TF32"
     report = {}
     main_state = {}
+    main_recall = []
     sharded_launches = {}  # the sharded phase's, added to the report at the end
     shardbuild_launches = {}  # the shardbuild phase's device-list builds', likewise
+    examples_launches = {}  # the examples phase's, likewise
+
+    def run_main():
+        *state, rec = phase_main(torch, 1_000_000, 16_384, report)
+        main_state.update(zip(("index", "data", "queries", "gt", "nprobe"), state))
+        main_recall.append(rec)
+
     runs = {
         "kernels": lambda: phase_kernels(torch, report),
-        "main": lambda: main_state.update(zip(
-            ("index", "data", "queries", "gt", "nprobe"),
-            phase_main(torch, 1_000_000, 16_384, report))),
+        "main": run_main,
+        "examples": lambda: examples_launches.update(
+            phase_examples(torch, **main_state, recall=main_recall[0], smi=smi, report=report)),
         "shardbuild": lambda: shardbuild_launches.update(
             phase_shardbuild(torch, **main_state, smi=smi)),
         "disk": lambda: phase_disk(torch, **main_state),
@@ -3019,7 +3272,8 @@ def main() -> int:
             main_state.clear()  # release main's index before the large phase
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
-    for name, c in (*sharded_launches.items(), *shardbuild_launches.items()):
+    for name, c in (*sharded_launches.items(), *shardbuild_launches.items(),
+                    *examples_launches.items()):
         report[name]["launches"] += c
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

@@ -8,6 +8,11 @@ import torch
 from spfresh_tpu_torch.core.dtypes import ACCUM_DTYPE
 
 
+def compute_mean(data: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Mean of the selected rows in f32: data (n, d), indices (m,) -> (d,)."""
+    return torch.mean(data[indices].to(ACCUM_DTYPE), dim=0)
+
+
 def masked_means(data: torch.Tensor, member_mask: torch.Tensor) -> torch.Tensor:
     """Per-cluster means from a bool membership mask: data (n, d),
     member_mask (n, k) -> (k, d), one ``mask^T @ data`` f32 matmul.  Empty

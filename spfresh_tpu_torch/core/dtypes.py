@@ -52,6 +52,9 @@ class DtypePolicy:
         return self.storage == "int8"
 
 
+DEFAULT_POLICY = DtypePolicy()
+
+
 def quant_scale_for(vecs) -> float:
     """Symmetric int8 scale for one posting: max|x| * (1/127), the same f32
     expression as :func:`posting_scales_np`; 1.0 for an all-zero posting."""
@@ -83,3 +86,8 @@ def bf16_round_np(x: np.ndarray) -> np.ndarray:
     ``ml_dtypes``, done through torch."""
     t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
     return t.to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def as_f32_np(x) -> np.ndarray:
+    """Host-side canonicalisation: a contiguous float32 numpy array."""
+    return np.ascontiguousarray(np.asarray(x, dtype=np.float32))

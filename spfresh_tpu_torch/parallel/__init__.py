@@ -10,9 +10,12 @@ One process drives a list of devices; an entry may repeat a device.
   KMeans++ seeding.  ``HierarchicalClustering(devices=...)`` and
   ``SpannIndexBuilder(devices=...)`` drive them.
 
-``replicate`` and ``shard_rows`` of the JAX package place arrays on a
-``Mesh`` and have no counterpart here; neither have the mesh-resident
-split and apply calls.
+``__all__`` is the JAX package's, less ``default_mesh``, ``replicate`` and
+``shard_rows``: they build and place arrays on a ``jax.sharding.Mesh``, and
+a list of devices takes the mesh's place here (neither have the
+mesh-resident split and apply calls a counterpart).  ``default_devices``
+(every visible CUDA device, in ``default_mesh``'s place) and the build
+functions above are importable from here too.
 """
 
 from spfresh_tpu_torch.parallel.build import (
@@ -25,10 +28,6 @@ from spfresh_tpu_torch.parallel.sharded import ShardedSpannIndex, default_device
 
 __all__ = [
     "ShardedSpannIndex",
-    "default_devices",
-    "kmeanspp_init_sharded",
     "sharded_cluster_step",
     "sharded_replica_pass",
-    "sharded_split_level",
-    "sharded_split_level_rows",
 ]
