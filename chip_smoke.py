@@ -144,7 +144,25 @@ Phases, each printing a line:
               to the same shards on the CPU up to f64 ties on the
               dequantized rows, with the distances of rows of equal ids
               within RERANK_RTOL.
-10. large   — the same generator at 4,194,304 x 128 (4,194 centers) with
+10. fuzz    — the JAX package's model fuzzers on the card (their CPU twins
+              are tests/test_torch_*_fuzz.py and test_torch_concurrent_stress.py):
+              the view-update fuzz at its test size (seeds 0, 1, 3 x float32,
+              bfloat16, int8: 40 random appends, rewrites, shrinks, new and
+              removed postings and centroid moves; every 6th, full-probe and
+              nprobe-2 searches of the in-place view give a fresh pack's
+              result sets and distances; under int8 the view's host scales
+              equal its device scales after every step) and at 100,000 x 128
+              of main's config (2,000 mutations, a full-probe check of 256
+              queries every 250, then nprobe 8 on 1,024 queries with equal
+              ids); SpFreshIndex and LazySpFreshIndex (with compact and
+              reopen) model fuzz, seeds 0, 1 x float32, int8, 150 steps:
+              after every flush the live set, the stored vectors (and the
+              RAM tier's search mirror) equal a dict model's, no deleted vid
+              is back, full-probe self-queries hit; the concurrent stress
+              on both tiers for 5 s each (searchers, a mutator, and on disk
+              a compactor thread).  Every rerank and replica launch of the
+              phase is recorded and held to its plain version afterwards.
+11. large   — the same generator at 4,194,304 x 128 (4,194 centers) with
               int8 (IVF-SQ8) storage: more than 32,768 clusters, so stage 1
               takes the windowed centroid scan and the rerank its quantized
               path; ground truth, the nprobe sweep to recall@10 >= 0.80
@@ -162,17 +180,17 @@ Phases, each printing a line:
               index is then saved packed and searched lazily on the card
               (window scan and quantized rerank launched, recall within
               0.01 of the in-memory search, 1,000 queries against the CPU).
-11. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
+12. manhattan — bench.py's --latent-dim 32 generator at GIST width (n 1M,
               d 960, 16,384 queries, seed 12345), a Manhattan bf16 build:
               the L1/Linf pairwise kernel runs the build's assignments,
               the closure pass, stage 1 and the ground truth; the sweep
               to recall@10 >= 0.90, the bf16 rerank against its plain
               version on the phase's slabs (d_pad 1,024) and stage-1 rows,
               and the device-time breakdown.
-12. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
+13. chebyshev — the same generator at 262,144 x 960 with Chebyshev; the
               sweep is printed (no target: Chebyshev plateaus on this data)
               and the rerank checked on the phase's slabs at nprobe 48.
-13. outofcore — benchmarks/outofcore_build_bench.py's corpus (4,194,304 x 96,
+14. outofcore — benchmarks/outofcore_build_bench.py's corpus (4,194,304 x 96,
               a memmap under build/) built out-of-core through
               Config.build_sample_rows (sample 1,048,576, tile 262,144, cap
               256, bf16): one nearest-centroid launch per tile, the replica
@@ -187,7 +205,7 @@ Phases, each printing a line:
               window scan and float rerank launched, recall within 0.01 of
               the in-memory search, 1,000 queries against the CPU, peak
               device memory under an eighth of the view's slab bytes.
-14. exact   — a 20k f32 index: full-probe search must have recall exactly 1.0
+15. exact   — a 20k f32 index: full-probe search must have recall exactly 1.0
               (Euclidean; Manhattan and Chebyshev at d 960, where a miss is
               allowed only as a tie, shown in f64).
 
@@ -274,6 +292,17 @@ TIMING_NQ = 4096
 SIFT_NQ = 1024  # main's queries that the examples phase's sift_eval reads from a file
 EXAMPLES = ("build_index", "load_index", "live_updates", "disk_updates", "quantized_index",
             "sharded_search", "sift_eval")
+# The fuzz phase: tests/test_view_update_fuzz.py's seeds (3 caught the int8
+# append-scale divergence), its real-size case, the model fuzzers' depth
+# and the concurrent stress's wall a tier.
+FUZZ_SEEDS = (0, 1, 3)
+FUZZ_REAL_N, FUZZ_REAL_STEPS, FUZZ_REAL_EVERY = 100_000, 2_000, 250
+MODEL_FUZZ_STEPS = 150
+FUZZ_STRESS_WALL = 5.0
+FUZZ_STORE = "fuzz"  # under build/, deleted after the phase
+# The real-size view is ~110 MiB of bf16 slabs; every launch of the phase is
+# recorded and held against its plain version.
+FUZZ_RECORD_MAX_BYTES = 512 * 2**20
 DEVICE = "cuda"
 
 
@@ -1193,11 +1222,11 @@ def launches_kernel(name: str, a: dict) -> bool:
 
 
 @contextlib.contextmanager
-def recorded_launches(torch, funcs):
+def recorded_launches(torch, funcs, max_bytes: int = RECORD_MAX_BYTES):
     """Records each launch of the wrappers ``funcs`` made through any name
     the port's modules bind them to: the call's arguments (defaults
     applied), each tensor copied at the call when its tensors total at
-    most RECORD_MAX_BYTES, else None.  Yields {function name: [record]};
+    most ``max_bytes``, else None.  Yields {function name: [record]};
     every name is restored on exit."""
     import inspect
 
@@ -1212,7 +1241,7 @@ def recorded_launches(torch, funcs):
             a = bound.arguments
             if launches_kernel(_f.__name__, a):
                 tensors = [v for v in a.values() if isinstance(v, torch.Tensor)]
-                small = sum(t.numel() * t.element_size() for t in tensors) <= RECORD_MAX_BYTES
+                small = sum(t.numel() * t.element_size() for t in tensors) <= max_bytes
                 records[_f.__name__].append(
                     {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in a.items()}
                     if small else None)
@@ -1231,11 +1260,12 @@ def recorded_launches(torch, funcs):
             setattr(mod, name, f)
 
 
-def check_recorded(torch, records, report) -> dict:
-    """Each recorded launch (``recorded_launches``) again, against the
-    plain version on the same inputs: the rerank within RERANK_RTOL, the
-    replica lists by replica_compare.  Folds the errors into ``report``
-    and returns {kernel: (launches checked, too large to record)}."""
+def check_recorded(torch, records, report, phase: str = "examples") -> dict:
+    """Each recorded launch (``recorded_launches``) of ``phase`` again,
+    against the plain version on the same inputs: the rerank within
+    RERANK_RTOL, the replica lists by replica_compare.  Folds the errors
+    into ``report`` and returns {kernel: [launches checked, too large to
+    record]}."""
     from spfresh_tpu_torch.ops import replica
 
     out = {k: [0, 0] for k in ("rerank", "rerank_int8", "replica")}
@@ -1247,7 +1277,7 @@ def check_recorded(torch, records, report) -> dict:
         rel, err = rerank_compare(torch, a["queries"], a["rows"], a["vectors3d"], a["metric"],
                                   scales=a["scales"], centered_queries=a["centered_queries"])
         cpad, pad, d_pad = a["vectors3d"].shape
-        assert rel <= RERANK_RTOL, (f"examples rerank ({kind}) Q={a['rows'].shape[0]} "
+        assert rel <= RERANK_RTOL, (f"{phase} rerank ({kind}) Q={a['rows'].shape[0]} "
                                     f"nprobe={a['rows'].shape[1]} pad={pad} d_pad={d_pad}: "
                                     f"rel err {rel}")
         report[kind]["max_abs_err"] = max(report[kind]["max_abs_err"], err)
@@ -1264,7 +1294,7 @@ def check_recorded(torch, records, report) -> dict:
         Xh, Ch = (t.float().cpu().numpy().astype(np.float64) for t in (X, cents))
         ties, err, rel = replica_compare(Xh, base.cpu().numpy(), Ch, a["bt"],
                                          *(t.cpu().numpy() for t in (ki, kr, pi, pr)), lam)
-        log(f"examples replica: n={X.shape[0]} C={cents.shape[0]} d={X.shape[1]} {X.dtype} "
+        log(f"{phase} replica: n={X.shape[0]} C={cents.shape[0]} d={X.shape[1]} {X.dtype} "
             f"n_extra={a['n_extra']} lambda={lam} db {'given' if a['db'] is not None else 'computed'}"
             f": near_tie_rows={ties} max_rank_rel_err={rel:.3e}")
         report["replica"]["max_abs_err"] = max(report["replica"]["max_abs_err"], err)
@@ -3207,6 +3237,478 @@ def exact_metric(torch, metric: str) -> None:
         f"id-recall@10={rec} (200 queries); misses {len(ties)}, all ties: {ties[:5]}")
 
 
+# -- fuzz: the JAX package's model fuzzers, on the card -----------------------
+
+
+def same_sets(a, b, tag: str) -> None:
+    """Each result row of ``a`` holds the ids of ``b``'s, in any order."""
+    rows = [r for r in range(len(a)) if set(a[r].tolist()) != set(b[r].tolist())]
+    assert not rows, f"{tag}: {len(rows)} rows differ, first {rows[0]}: {a[rows[0]]} vs {b[rows[0]]}"
+
+
+def same_search(index, oracle, queries, k: int, nprobe: int, tag: str) -> None:
+    """The in-place view of ``index`` searches as ``oracle``'s fresh pack:
+    the same result sets and, row by row, the same distances (the same
+    slab values)."""
+    got, got_d = index.search(queries, k, nprobe=nprobe)
+    want, want_d = oracle.search(queries, k, nprobe=nprobe)
+    same_sets(got, want, tag)
+    assert np.array_equal(np.sort(got_d, axis=1), np.sort(want_d, axis=1)), f"{tag}: distances"
+
+
+def fresh_pack(index):
+    """A copy of ``index``'s postings on the card, its view packed from
+    scratch at its first search: the oracle of the in-place view."""
+    from spfresh_tpu_torch.interop import from_jax_state
+
+    return from_jax_state(index.postings, index.centroids, index.dim, index.config.to_dict(),
+                          device=DEVICE)
+
+
+def view_mutation(index, rng, next_vid: int, spread: float, scale: float) -> int:
+    """One random mutation of tests/test_view_update_fuzz.py's kinds and
+    odds: members appended near the centroid (``spread``), one member
+    rewritten as a fresh id, members shrunk, a new posting (centroid drawn
+    at ``scale``), a posting removed, a centroid moved.  Returns the next
+    free vid."""
+    d = index.dim
+    op = rng.choice(["append", "rewrite", "shrink", "new", "remove", "centroid"],
+                    p=[0.3, 0.15, 0.2, 0.12, 0.08, 0.15])
+    cids = sorted(index.postings)
+    if op == "append":
+        c = int(rng.choice(cids))
+        ids, vecs = index.postings[c]
+        kk = int(rng.integers(1, 5))
+        add = (index.centroids[c][None, :] + spread * rng.standard_normal((kk, d)))
+        index.replace_posting(c, np.concatenate([ids, np.arange(next_vid, next_vid + kk)]),
+                              np.concatenate([np.asarray(vecs, np.float32),
+                                              add.astype(np.float32)]),
+                              centroid=index.centroids[c])
+        next_vid += kk
+    elif op == "rewrite":  # a value change ships as a fresh id
+        c = int(rng.choice(cids))
+        ids, vecs = index.postings[c]
+        ids, vecs = np.asarray(ids).copy(), np.asarray(vecs, np.float32).copy()
+        if len(ids):
+            j = int(rng.integers(len(ids)))
+            vecs[j] = vecs[j] + 0.05
+            ids[j] = next_vid
+            next_vid += 1
+        index.replace_posting(c, ids, vecs)
+    elif op == "shrink":
+        c = int(rng.choice(cids))
+        ids, vecs = index.postings[c]
+        if len(ids) > 2:
+            keep = len(ids) - int(rng.integers(1, min(4, len(ids) - 1)))
+            index.replace_posting(c, ids[:keep], np.asarray(vecs, np.float32)[:keep])
+    elif op == "new":
+        kk = int(rng.integers(2, 6))
+        cent = (scale * rng.standard_normal(d)).astype(np.float32)
+        vs = (cent[None, :] + spread * rng.standard_normal((kk, d))).astype(np.float32)
+        index.add_cluster(vs, np.arange(next_vid, next_vid + kk), cent)
+        next_vid += kk
+    elif op == "remove" and len(cids) > 3:
+        index.remove_cluster(int(rng.choice(cids)))
+    elif op == "centroid":
+        c = int(rng.choice(cids))
+        index.replace_posting(c, *index.postings[c], centroid=(
+            index.centroids[c] + 0.1 * rng.standard_normal(d)).astype(np.float32))
+    return next_vid
+
+
+def scales_in_step(index, tag: str) -> None:
+    """The live int8 view's host copy of its scales (the append path's
+    scale guard reads it) equals its device scales; the view is read as it
+    stands, refreshed only by the checks' searches."""
+    from spfresh_tpu_torch.index import SpannIndex
+
+    view = index._padded_view
+    host = SpannIndex._view_scales_host(view)
+    assert np.array_equal(host, view.scales.cpu().numpy()), f"{tag}: scales_host drifted"
+
+
+def fuzz_view_small(scratch, sd: str, seed: int) -> int:
+    """tests/test_view_update_fuzz.py's case (seed, storage dtype) on the
+    card: its corpus, 40 mutations, every 6th a full-probe and an
+    nprobe-2 search of the in-place view against a view packed from
+    scratch (same_search).  Returns the checks."""
+    from spfresh_tpu_torch.index import Config, SpannIndexBuilder
+
+    rng = np.random.default_rng(5000 + seed)
+    centers = 3.0 * rng.standard_normal((6, 8)).astype(np.float32)
+    data = (centers[rng.integers(0, 6, 300)] + 0.2 * rng.standard_normal((300, 8)))
+    data = data.astype(np.float32)
+    cfg = Config.from_dict({
+        "clustering_params": {"initial_k": 4, "desired_cluster_size": 50, "rng_seed": 42},
+        "output_path": str(scratch / f"vf_{sd}_{seed}"), "storage_dtype": sd})
+    index = SpannIndexBuilder(cfg, device=DEVICE).with_data(data).build(save=False)
+    queries = np.concatenate([data[:6], 3.0 * rng.standard_normal((4, 8))]).astype(np.float32)
+    checks = 0
+
+    def check(tag):
+        nonlocal checks
+        oracle = fresh_pack(index)
+        same_search(index, oracle, queries, 8, index.num_clusters, tag)
+        same_search(index, oracle, queries, 8, 2, f"{tag} nprobe 2")  # the centroids route alike
+        checks += 1
+
+    index.padded_view()
+    next_vid = 50_000
+    for step in range(40):
+        next_vid = view_mutation(index, rng, next_vid, 0.2, 3.0)
+        tag = f"fuzz view sd={sd} seed={seed} step={step}"
+        if sd == "int8":
+            scales_in_step(index, tag)
+        if step % 6 == 5:
+            check(tag)
+    check(f"fuzz view sd={sd} seed={seed} final")
+    return checks
+
+
+def fuzz_view_real(torch, scratch, n: int) -> None:
+    """The view fuzz at a real size: main's config (bf16, cap 256) on n
+    rows of main's generator, FUZZ_REAL_STEPS mutations of the same kinds
+    (members at the corpus spread), and every FUZZ_REAL_EVERY steps the
+    in-place view's full-probe result sets and distances on 256 queries
+    against a view packed from scratch; then an nprobe-8 search of 1,024
+    queries with the same ids from both."""
+    from spfresh_tpu_torch.index import Config, SpannIndexBuilder
+    from spfresh_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    data, queries = mixture(777, n, 1024)
+    cfg = Config.from_dict({**main_config(), "output_path": str(scratch / "vf_real")})
+    index = SpannIndexBuilder(cfg, device=DEVICE).with_data(data).build(save=False)
+    index.padded_view()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(6000)
+    next_vid = 10 * n
+    before = live_counts(metrics)
+    check_s = 0.0
+    for step in range(FUZZ_REAL_STEPS):
+        next_vid = view_mutation(index, rng, next_vid, 0.7, 1.0)
+        if step % FUZZ_REAL_EVERY == FUZZ_REAL_EVERY - 1:
+            t1 = time.perf_counter()
+            same_search(index, fresh_pack(index), queries[:256], 10, index.num_clusters,
+                        f"fuzz view real step={step}")
+            check_s += time.perf_counter() - t1
+    got, _ = index.search(queries, 10, nprobe=8)
+    want, _ = fresh_pack(index).search(queries, 10, nprobe=8)
+    differ = int((got != want).sum())
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in live_counts(metrics).items() if k.startswith("view.")}
+    inplace = moved["view.incremental_updates"]
+    log(f"fuzz view real: {n} x 128 bf16, {index.num_clusters} postings after "
+        f"{FUZZ_REAL_STEPS} mutations; {FUZZ_REAL_STEPS // FUZZ_REAL_EVERY} full-probe checks of "
+        f"256 queries equal a fresh pack's; nprobe 8 on 1,024 queries: {differ} ids differ; "
+        f"the in-place view's refreshes {moved}; build {build_s:.2f} s, checks {check_s:.2f} s, "
+        f"wall {time.perf_counter() - t0:.2f} s")
+    assert inplace > 0, "the real-size view never refreshed in place"
+    assert differ == 0, f"nprobe 8: {differ} ids differ from a fresh pack"
+
+
+def fuzz_model(scratch, tier: str, sd: str, seed: int, steps: int) -> int:
+    """tests/test_spfresh_model_fuzz.py (tier "ram": SpFreshIndex) or
+    tests/test_fresh_model_fuzz.py (tier "disk": LazySpFreshIndex, with
+    compact and reopen) on the card: their corpora, seeds and odds, a dict
+    ``vid -> vector`` as the model.  After every flush: the storage live
+    set (and for "ram" the search mirror) equals the model with the
+    inserted vectors, no deleted vid is back, and a full-probe
+    self-query finds each of 4 vids (distance < 1e-4 for float slabs).
+    Returns the checks."""
+    from spfresh_tpu_torch.index import Config, SpannIndexBuilder
+    from spfresh_tpu_torch.lire import LazySpFreshIndex, LireConfig, SpFreshIndex
+
+    disk = tier == "disk"
+    rng = np.random.default_rng((3000 if disk else 4000) + seed)
+    data = 2.0 * rng.standard_normal((150, 8)).astype(np.float32)
+    out = scratch / f"fz_{tier}_{sd}_{seed}"
+    cfg = Config.from_dict({
+        "storage_dtype": sd, "output_path": str(out),
+        "clustering_params": {"initial_k": 4, "desired_cluster_size": 30, "rng_seed": 42,
+                              "max_replicas": 2}})
+    index = SpannIndexBuilder(cfg, device=DEVICE).with_data(data).build(save=disk)
+    lire = LireConfig(max_partition_size=60, min_partition_size=2)
+
+    def open_index():
+        if disk:
+            return LazySpFreshIndex(str(out), lire_config=lire, device=DEVICE)
+        return SpFreshIndex(index, str(scratch / f"lire_{sd}_{seed}"), lire)
+
+    def live(fresh):
+        lives = [store_live(fresh.storage)]
+        if not disk:  # the search mirror
+            lives.append({int(v): x for v, x in zip(*live_vectors(fresh.index))})
+        return lives
+
+    checks = 0
+
+    def check(fresh, tag):
+        nonlocal checks
+        fresh.flush()
+        for got in live(fresh):
+            assert set(got) == set(model), (f"{tag}: missing {sorted(set(model) - set(got))[:8]} "
+                                            f"extra {sorted(set(got) - set(model))[:8]}")
+            assert all(np.array_equal(got[v], x) for v, x in model.items()), f"{tag}: vectors"
+            assert not set(got) & deleted, f"{tag}: a deleted vid came back"
+        probe = list(model.items())[:4]
+        if probe:
+            ids, d = fresh.search(np.stack([v for _, v in probe]), 1,
+                                  nprobe=fresh.num_clusters if disk else fresh.index.num_clusters)
+            assert [int(i) for i in ids[:, 0]] == [v for v, _ in probe], f"{tag}: self-query"
+            if sd != "int8":
+                assert float(d.max()) < 1e-4, f"{tag}: self-distance {d.max()}"
+        checks += 1
+
+    fresh = open_index()
+    model = store_live(fresh.storage)
+    deleted: set = set()
+    next_vid = 10_000
+    ops = ["insert", "insert_batch", "delete", "delete_batch"] + (["compact", "reopen"]
+                                                                   if disk else [])
+    odds = [0.35, 0.2, 0.2, 0.1, 0.08, 0.07] if disk else [0.4, 0.2, 0.27, 0.13]
+    every = 12 if disk else 15
+    try:
+        for step in range(steps):
+            op = rng.choice(ops, p=odds)
+            if op == "insert":
+                v = 2.0 * rng.standard_normal(8).astype(np.float32)
+                fresh.insert(v, next_vid)
+                model[next_vid] = v
+                next_vid += 1
+            elif op == "insert_batch":
+                kk = int(rng.integers(2, 12))
+                vs = 2.0 * rng.standard_normal((kk, 8)).astype(np.float32)
+                fresh.insert_batch(vs, list(range(next_vid, next_vid + kk)))
+                model.update(zip(range(next_vid, next_vid + kk), vs))
+                next_vid += kk
+            elif op == "delete" and model:
+                vid = int(rng.choice(sorted(model)))
+                fresh.delete(vid)
+                model.pop(vid)
+                deleted.add(vid)
+            elif op == "delete_batch" and model:
+                vids = [int(v) for v in rng.permutation(sorted(model))[:4]]
+                fresh.delete_batch(vids)
+                for vid in vids:
+                    model.pop(vid)
+                    deleted.add(vid)
+            elif op == "compact":
+                fresh.compact()
+            elif op == "reopen":
+                fresh.flush()
+                fresh.close()
+                fresh = open_index()
+            if step % every == every - 1:
+                check(fresh, f"fuzz {tier} sd={sd} seed={seed} step={step}")
+        check(fresh, f"fuzz {tier} sd={sd} seed={seed} final")
+        if disk:  # everything survives one more reopen
+            fresh.close()
+            fresh = open_index()
+            check(fresh, f"fuzz {tier} sd={sd} seed={seed} post-final-reopen")
+    finally:
+        fresh.close()
+    return checks
+
+
+def store_live(storage) -> dict:
+    """{vid: vector} over a LIRE store's live entries (replicas collapse)."""
+    out = {}
+    for pid in storage.posting_ids():
+        ids, vecs, _ = storage.get_posting(pid)
+        out.update((int(v), np.asarray(x, np.float32)) for v, x in zip(ids, vecs))
+    return out
+
+
+def fuzz_stress(scratch, tier: str, wall: float) -> str:
+    """tests/test_concurrent_stress.py on the card: searchers running full
+    probes nonstop, a mutator (inserts, deletes, batch deletes of its own
+    vids) and, for tier "disk", a compactor on a thread of its own, for
+    ``wall`` seconds.  Gates: no thread raises or wedges, no vid deleted
+    before a search began is returned by it, no row repeats an id, the
+    anchor (vid 0) stays findable, and the flushed live set is the
+    build's plus the inserts less the confirmed deletes."""
+    import threading
+    import traceback
+
+    from spfresh_tpu_torch.index import Config, SpannIndexBuilder
+    from spfresh_tpu_torch.lire import LazySpFreshIndex, LireConfig, LireStorageError, SpFreshIndex
+
+    disk = tier == "disk"
+    data = 2.0 * np.random.default_rng(0).standard_normal((200, 8)).astype(np.float32)
+    out = scratch / f"cc_{tier}"
+    cfg = Config.from_dict({"output_path": str(out), "clustering_params": {
+        "initial_k": 4, "desired_cluster_size": 40, "rng_seed": 42}})
+    index = SpannIndexBuilder(cfg, device=DEVICE).with_data(data).build(save=disk)
+    lire = LireConfig(max_partition_size=80, min_partition_size=2)
+    fresh = (LazySpFreshIndex(str(out), lire_config=lire, device=DEVICE) if disk
+             else SpFreshIndex(index, str(scratch / "cc_lire"), lire))
+    nprobe = (lambda: fresh.num_clusters) if disk else (lambda: index.num_clusters)
+    initial = set(store_live(fresh.storage))
+    stop, lock = threading.Event(), threading.Lock()
+    errors, deleted, inserted, searches = [], set(), set(), [0]
+
+    def actor(name, body):
+        def run():
+            try:
+                body()
+            except Exception as e:  # reported with the other actors' errors below
+                errors.append(f"{name}: {type(e).__name__}: {e}\n{traceback.format_exc()}")
+        return threading.Thread(target=run, name=name)
+
+    def searcher(q):
+        def body():
+            while not stop.is_set():
+                with lock:
+                    pre = set(deleted)
+                ids, _ = fresh.search(q, 8, nprobe=nprobe())
+                searches[0] += 1
+                for row in ids:
+                    real = [int(i) for i in row if i >= 0]
+                    assert len(real) == len(set(real)), f"repeated id in {row}"
+                bad = set(ids.ravel().tolist()) & pre
+                assert not bad, f"deleted vids returned: {vid_state(bad)}"
+                assert 0 in ids[0], f"the anchor vanished: {vid_state([0])}"
+        return body
+
+    def mutator():
+        r = np.random.default_rng(1)
+        next_vid, mine = 20_000, []
+        while not stop.is_set():
+            if mine and r.random() < 0.45:
+                if len(mine) >= 3 and r.random() < 0.3:
+                    vids = [mine.pop(int(r.integers(len(mine)))) for _ in range(3)]
+                    n_del = fresh.delete_batch(vids)
+                    gone = [v for v in vids if not fresh.storage.postings_of(v)]
+                    assert n_del == len(vids) or len(gone) < len(vids), "delete_batch undercounted"
+                    with lock:
+                        deleted.update(gone)
+                    mine.extend(v for v in vids if v not in gone)
+                    continue
+                vid = mine.pop(int(r.integers(len(mine))))
+                for _ in range(20):
+                    try:
+                        fresh.delete(vid)
+                        break
+                    except LireStorageError:
+                        continue  # the documented retry contract
+                else:
+                    raise AssertionError(f"delete({vid}) never converged")
+                with lock:
+                    deleted.add(vid)
+            else:
+                fresh.insert(2.0 * r.standard_normal(8).astype(np.float32), next_vid)
+                inserted.add(next_vid)
+                mine.append(next_vid)
+                next_vid += 1
+
+    def compactor():
+        while not stop.is_set():
+            fresh.compact()
+            stop.wait(0.25)
+
+    def vid_state(vids):
+        """Where each vid lives at detection time (tests/test_concurrent_stress.py's
+        forensics): the store's postings and the search mirror's."""
+        try:
+            mirror = {} if disk else dict(list(fresh.index.postings.items()))
+        except RuntimeError:  # the postings changed while copied
+            mirror = {}
+        return "; ".join(
+            f"vid {v}: storage={fresh.storage.postings_of(int(v))} "
+            f"mirror={[c for c, (ids, _) in mirror.items() if (ids == v).any()]}"
+            for v in list(vids)[:8])
+
+    threads = [actor("searcher", searcher(data[[0, 5, 9]])), actor("mutator", mutator)]
+    if disk:
+        threads += [actor("searcher", searcher(data[[0, 17, 42]])), actor("compactor", compactor)]
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + wall
+        while time.monotonic() < deadline and not errors:
+            time.sleep(0.05)
+        stop.set()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads), f"fuzz stress {tier}: a thread wedged"
+        assert not errors, errors[:3]
+        fresh.flush()
+        ids, d = fresh.search(data[:1], 1, nprobe=nprobe())
+        assert int(ids[0, 0]) == 0 and float(d[0, 0]) < 1e-4, (ids, d)
+        got, want = set(store_live(fresh.storage)), (initial | inserted) - deleted
+        assert got == want, f"fuzz stress {tier}: live set off by {len(got ^ want)}"
+        postings = len(fresh.storage.posting_ids())
+    finally:
+        stop.set()
+        fresh.close()
+    return (f"{searches[0]} searches, {len(inserted)} inserts, {len(deleted)} confirmed deletes, "
+            f"{postings} postings after")
+
+
+def phase_fuzz(torch, report) -> dict:
+    """The JAX package's model fuzzers on the card (the CPU twins are
+    tests/test_torch_*_fuzz.py and tests/test_torch_concurrent_stress.py):
+    the view-update fuzz at the test size (seeds 0, 1, 3 x float32,
+    bfloat16, int8) and at FUZZ_REAL_N rows of main's config; SpFreshIndex
+    and LazySpFreshIndex model fuzz (seeds 0, 1 x float32, int8,
+    MODEL_FUZZ_STEPS steps); the concurrent stress on both tiers
+    (FUZZ_STRESS_WALL s each).  Every launch of the rerank (float and
+    int8) and replica kernels in the phase is recorded and, after the
+    counts are read, held against its plain version (check_recorded).
+    Returns the phase's launches, per report entry."""
+    import importlib
+    import shutil
+    from pathlib import Path
+
+    from spfresh_tpu_torch.ops import rerank, replica
+    from spfresh_tpu_torch.utils import metrics
+
+    # Every module that binds a wrapper's name, imported before the names
+    # are recorded.
+    for name in ("clustering.hierarchical", "index.spann", "index.lazy", "ops.centroid_scan",
+                 "lire", "interop"):
+        importlib.import_module(f"spfresh_tpu_torch.{name}")
+    scratch = Path(__file__).resolve().parent / "build" / FUZZ_STORE
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    metrics.DEFAULT.reset()
+    rerank.launches = rerank.quantized_launches = replica.launches = 0
+    try:
+        with recorded_launches(torch, (rerank.padded_rerank_distances, replica.replica_topk),
+                               max_bytes=FUZZ_RECORD_MAX_BYTES) as records:
+            for sd in ("float32", "bfloat16", "int8"):
+                t0 = time.perf_counter()
+                checks = [fuzz_view_small(scratch, sd, seed) for seed in FUZZ_SEEDS]
+                log(f"fuzz view {sd}: seeds {FUZZ_SEEDS}, 40 mutations each, {sum(checks)} "
+                    f"checks (full probe and nprobe 2) equal a fresh pack's "
+                    f"({time.perf_counter() - t0:.2f} s)")
+            fuzz_view_real(torch, scratch, FUZZ_REAL_N)
+            for tier in ("ram", "disk"):
+                for sd in ("float32", "int8"):
+                    for seed in (0, 1):
+                        t0 = time.perf_counter()
+                        n = fuzz_model(scratch, tier, sd, seed, MODEL_FUZZ_STEPS)
+                        log(f"fuzz model {tier} sd={sd} seed={seed}: {MODEL_FUZZ_STEPS} steps, "
+                            f"{n} checks passed ({time.perf_counter() - t0:.2f} s)")
+            for tier in ("disk", "ram"):
+                t0 = time.perf_counter()
+                res = fuzz_stress(scratch, tier, FUZZ_STRESS_WALL)
+                log(f"fuzz stress {tier}: {res}; gates passed ({time.perf_counter() - t0:.2f} s)")
+        counts = {"rerank": rerank.launches, "rerank_int8": rerank.quantized_launches,
+                  "replica": replica.launches}
+        log(f"fuzz: kernel launches in the phase {counts}; live counts {live_counts(metrics)}")
+        assert all(c > 0 for c in counts.values()), counts
+        checked = check_recorded(torch, records, report, "fuzz")
+        log(f"fuzz: launches held against the plain versions (checked, too large to record) "
+            f"{checked}")
+        for kind, c in counts.items():
+            assert checked[kind] == [c, 0], f"fuzz {kind}: {checked[kind]} of {c} launches"
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3243,6 +3745,7 @@ def main() -> int:
     sharded_launches = {}  # the sharded phase's, added to the report at the end
     shardbuild_launches = {}  # the shardbuild phase's device-list builds', likewise
     examples_launches = {}  # the examples phase's, likewise
+    fuzz_launches = {}  # the fuzz phase's, likewise
 
     def run_main():
         *state, rec = phase_main(torch, 1_000_000, 16_384, report)
@@ -3259,6 +3762,7 @@ def main() -> int:
         "disk": lambda: phase_disk(torch, **main_state),
         "live": lambda: main_state.update(zip(("live", "int8"), phase_live(torch, **main_state))),
         "sharded": lambda: sharded_launches.update(phase_sharded(torch, **main_state, smi=smi)),
+        "fuzz": lambda: fuzz_launches.update(phase_fuzz(torch, report)),
         "large": lambda: phase_large(torch, LARGE_N, 16_384, report),
         "manhattan": lambda: phase_metric(torch, "Manhattan", 1_000_000, 16_384, report, 0.90),
         "chebyshev": lambda: phase_metric(torch, "Chebyshev", 262_144, 16_384, report, None),
@@ -3273,7 +3777,7 @@ def main() -> int:
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
     for name, c in (*sharded_launches.items(), *shardbuild_launches.items(),
-                    *examples_launches.items()):
+                    *examples_launches.items(), *fuzz_launches.items()):
         report[name]["launches"] += c
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

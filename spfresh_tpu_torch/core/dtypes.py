@@ -48,11 +48,36 @@ class DtypePolicy:
         return _STORAGE_DTYPES[self.storage]
 
     @property
+    def accum_dtype(self) -> torch.dtype:
+        return ACCUM_DTYPE
+
+    @property
+    def storage_itemsize(self) -> int:
+        return self.storage_dtype.itemsize
+
+    def to_storage(self, x, device=None) -> torch.Tensor:
+        """``x`` as a tensor in the storage dtype on ``device`` (default:
+        ``x``'s own device when it is a tensor, else the CPU)."""
+        return torch.as_tensor(x, dtype=self.storage_dtype, device=_device_of(x, device))
+
+    def to_accum(self, x, device=None) -> torch.Tensor:
+        """``x`` as an f32 tensor on ``device``, defaulting as ``to_storage``."""
+        return torch.as_tensor(x, dtype=ACCUM_DTYPE, device=_device_of(x, device))
+
+    @property
     def quantized(self) -> bool:
         return self.storage == "int8"
 
 
 DEFAULT_POLICY = DtypePolicy()
+
+
+def _device_of(x, device):
+    """``device`` if given, else ``x``'s device for a tensor, else the CPU:
+    nothing moves to a card unless the caller names it."""
+    if device is not None:
+        return torch.device(device)
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
 
 
 def quant_scale_for(vecs) -> float:

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from spfresh_tpu_torch.core.dtypes import ACCUM_DTYPE
@@ -128,3 +129,19 @@ def distance(u, v, metric: str = EUCLIDEAN) -> torch.Tensor:
     u = torch.as_tensor(u, dtype=ACCUM_DTYPE).reshape(-1)
     v = torch.as_tensor(v, dtype=ACCUM_DTYPE, device=u.device).reshape(-1)
     return rowwise_distance(u, v, metric)
+
+
+def distance_f64(u, v, metric: str = EUCLIDEAN) -> np.float64:
+    """Single-pair float64 distance on the host (numpy), for verification
+    and ground-truth work; the device path accumulates in f32."""
+    metric = canonical_metric(metric)
+    uf = np.asarray(u, np.float64).reshape(-1)
+    vf = np.asarray(v, np.float64).reshape(-1)
+    if uf.shape != vf.shape:
+        raise ValueError(f"dimension mismatch: {uf.shape} vs {vf.shape}")
+    diff = uf - vf
+    if metric == EUCLIDEAN:
+        return np.float64(np.sum(diff * diff))
+    if metric == MANHATTAN:
+        return np.float64(np.sum(np.abs(diff)))
+    return np.float64(np.max(np.abs(diff)))

@@ -1178,66 +1178,3 @@ def test_lazy_fresh_same_ops_leave_equal_live_contents(tmp_path):
             if not compacted:
                 jf.compact()
                 tf.compact()
-
-
-def test_concurrent_searches_and_updates_stress(tmp_path):
-    """Eight searching threads (prefetch pipeline on) against a writer that
-    inserts, deletes, splits and compacts, with a short switch interval:
-    no search raises, no row repeats an id, and no id deleted before a
-    search began is returned by it."""
-    import sys
-    import threading
-    import time as _time
-
-    cfg, index, data, rng = _build_packed(tmp_path, n=240)
-    fresh = LazySpFreshIndex(cfg.output_path, lire_config=_lire_small(), prefetch_threads=2)
-    dead: set = set()
-    dead_lock = threading.Lock()
-    errors, stop = [], threading.Event()
-    q = data[:24]
-
-    def searcher():
-        try:
-            while not stop.is_set():
-                with dead_lock:
-                    before = set(dead)
-                ids, _ = fresh.search(q, k=5, nprobe=fresh.num_clusters, batch_size=8)
-                for row in ids:
-                    real = [int(i) for i in row if i >= 0]
-                    assert len(real) == len(set(real)), row
-                    assert not (set(real) & before), (row, before)
-        except Exception as e:  # reported below, with the writer's
-            errors.append(e)
-
-    old = sys.getswitchinterval()
-    sys.setswitchinterval(1e-5)
-    threads = [threading.Thread(target=searcher) for _ in range(8)]
-    try:
-        for t in threads:
-            t.start()
-        deadline = _time.monotonic() + 3.0
-        vid, r = 20_000, 0
-        while _time.monotonic() < deadline and not errors:
-            pid = fresh.storage.posting_ids()[r % 3]
-            cent = fresh.storage.get_posting_centroid(pid)
-            add = (cent[None, :] + 0.01 * rng.standard_normal((30, data.shape[1]))).astype(
-                np.float32)
-            fresh.insert_batch(add, np.arange(vid, vid + 30))
-            victims = [int(v) for v in rng.choice(np.arange(vid, vid + 30), 5, replace=False)]
-            fresh.delete_batch(victims)
-            with dead_lock:
-                dead.update(victims)
-            vid += 30
-            r += 1
-            if r % 4 == 0:
-                fresh.compact()
-    finally:
-        stop.set()
-        for t in threads:
-            t.join(30)
-        sys.setswitchinterval(old)
-        alive = [t.is_alive() for t in threads]
-        fresh.close()
-    assert not any(alive)
-    assert not errors, errors[:3]
-    assert r >= 4
