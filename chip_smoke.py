@@ -19,7 +19,11 @@ Phases, each printing a line:
               f32, bf16 and int8, every metric, a pad no tile divides and
               one that wraps the ring, one slab under 4,096 pairs, one
               pair, out-of-range rows giving NaN rows), and its slab-major
-              schedule on the card against its CPU form; the expansion-form
+              schedule on the card against its CPU form; the window scan in
+              both rank modes at SCAN_CASES (large's and outofcore's stage-1
+              shapes, Q 64, d_pad 1,024, Q 1 and 8,229; an all-invalid
+              window), with the cuBLAS product alone and its tensor-core
+              bound where timed; the expansion-form
               int8 scorer (rerank_int8mxu) at benchmarks/rerank_bench.py's
               shape, bit-equal to its plain version, with its schedule
               timed alone, and at its edges (d 16 to 4,096 at pads 4 to
@@ -250,6 +254,7 @@ SOURCES = {
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12    # CUDA cores
 BF16_FLOPS = 989e12  # tensor cores
+TF32_FLOPS = 495e12  # tensor cores, TF32
 INT8_OPS = 1979e12   # tensor cores, dense int8
 PAIRWISE_RTOL, PAIRWISE_ATOL = 1e-5, 1e-4  # tests/test_pallas_pairwise.py: L1 sum order
 GIST_D, GIST_LATENT = 960, 32
@@ -266,6 +271,14 @@ NEAREST_RTOL = 1e-5
 # order.  A rank is a difference of terms of the size of |c|^2, so its
 # error is relative to that size, not to the (possibly cancelled) rank.
 SCAN_RTOL = 1e-5
+# The window scan's checks: (name, Q, C, d).  `large`'s stage-1 shape
+# (Cpad 44,032), `outofcore`'s (Cpad 54,272, d_pad 128), the disk tier's
+# batch of 64, a GIST-width index (d_pad 1,024) and the edges of Q.  Every
+# case runs both rank modes with window 1 and every 997th row invalid.
+SCAN_CASES = (("large", 8192, 43_300, 128), ("outofcore", 8192, 53_898, 96),
+              ("q64", 64, 43_300, 128), ("d1024", 8192, 43_300, 960),
+              ("q1", 1, 43_300, 128), ("q8229", 8192 + 37, 43_300, 128))
+SCAN_TIMED = ("large", "outofcore", "q64", "d1024")  # the cases timed
 # The shardbuild phase: a device list of 4 entries (cuda:0 repeated); the
 # binary and nested builds on main's corpus; the out-of-core build of main's
 # corpus in 8 tiles; 65,536 rows of manhattan's.
@@ -879,51 +892,93 @@ def int8mxu_edge_cases(torch) -> None:
         f"stable order equal; unaligned codes and |r|^2 tables raise")
 
 
+def scan_check(torch, caug, qaug, bf16_rank: bool, cn2_mean: float):
+    """The window scan against its plain version on (caug, qaug): no NaN,
+    the same windows finite (sentinel windows reach inf from d_pad 384 on),
+    and every finite minimum within SCAN_RTOL of |rank| + mean |c|^2.
+    Returns (max rel err, max abs err over windows whose minimum is a real
+    rank, the number of those)."""
+    from spfresh_tpu_torch.ops import centroid_scan
+
+    got = centroid_scan.centroid_window_scan(caug, qaug, bf16_rank)
+    want = centroid_scan.centroid_window_scan_plain(caug, qaug, bf16_rank)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(got).any()), "window scan gave NaN"
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin), "window scan: other windows finite"
+    err = (got - want).abs()[fin]
+    rel = float((err / (want.abs()[fin] + cn2_mean)).max())
+    assert rel <= SCAN_RTOL, f"window scan bf16_rank={bf16_rank}: rel err {rel} > {SCAN_RTOL}"
+    real = want.abs() < 1e30
+    return rel, float((got - want).abs()[real].max()), int(real.sum())
+
+
+def scan_gemm_ms(torch, caug, qaug, bf16_rank: bool, iters: int) -> float:
+    """cuBLAS time of the scan's product alone, (Q, d_pad) x (d_pad, Cpad):
+    torch.matmul in bf16 for the bf16 rank, in f32 without TF32 for the f32
+    rank (Precision.HIGHEST's contract).  A yardstick the port never calls."""
+    dt = torch.bfloat16 if bf16_rank else torch.float32
+    a, b = qaug.to(dt), caug.to(dt).T
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=dt, device=a.device)
+    return cuda_ms(torch, lambda: torch.matmul(a, b, out=out), iters)
+
+
 def kernel_centroid_scan(torch, report):
-    """The window scan at the large phase's stage-1 shape in both rank
-    modes: bench-mixture centroids with a few invalid (1e18) rows, and
-    bench-mixture queries."""
+    """The window scan at SCAN_CASES in both rank modes against its plain
+    version: bench-mixture centroids with window 1 and every 997th row
+    invalid (1e18), and bench-mixture queries.  The timed cases log the
+    kernel, its plain version, the cuBLAS product alone and the bound."""
     from spfresh_tpu_torch.ops import centroid_scan
 
     dev = torch.device(DEVICE)
-    Q, C, d_pad = 8192, 43_300, 128
-    data, queries = mixture(2, C, Q)
-    valid = torch.ones(C, dtype=torch.bool, device=dev)
-    valid[::997] = False
-    caug, qaug, cpad = centroid_scan._augment(torch.from_numpy(queries).to(dev),
-                                              torch.from_numpy(data).to(dev), valid, d_pad)
-    assert cpad == 44_032, cpad
-    cn2_mean = float((caug[:C][valid] ** 2).sum(1).mean())  # the size of a rank's terms
-    worst = {}
-    for bf16_rank in (False, True):
-        got = centroid_scan.centroid_window_scan(caug, qaug, bf16_rank)
-        want = centroid_scan.centroid_window_scan_plain(caug, qaug, bf16_rank)
-        torch.cuda.synchronize()
-        assert bool(torch.isfinite(got).all()), "window minima must be finite at d_pad 128"
-        err = (got - want).abs()
-        rel = float((err / (want.abs() + cn2_mean)).max())
-        assert rel <= SCAN_RTOL, f"window scan bf16_rank={bf16_rank}: rel err {rel} > {SCAN_RTOL}"
-        # Windows of C-padding rows hold ~1.3e38 sentinels; the absolute
-        # error is reported over the windows whose minimum is a real rank.
-        real = want.abs() < 1e30
-        max_abs = float(err[real].max())
-        ms = cuda_ms(torch, lambda: centroid_scan.centroid_window_scan(caug, qaug, bf16_rank), 10)
-        plain_ms = cuda_ms(torch, lambda: centroid_scan.centroid_window_scan_plain(
-            caug, qaug, bf16_rank), 3)
-        tflops = 2 * Q * cpad * d_pad / (ms * 1e-3) / 1e12
-        mode = "bf16" if bf16_rank else "f32"
-        log(f"kernel centroid_scan: Q={Q} Cpad={cpad} d_pad={d_pad} rank={mode} "
-            f"max_rel_err={rel:.3e} (of |rank| + mean |c|^2 = {cn2_mean:.1f}) "
-            f"max_abs_err={max_abs:.3e} over {int(real.sum())} real window minima "
-            f"(rtol {SCAN_RTOL}) kernel={ms:.4f} ms ({tflops:.2f} TFLOP/s) "
-            f"plain={plain_ms:.4f} ms")
-        worst[mode] = (max_abs, ms, plain_ms)
-    # The large phase ranks in f32 (an int8 index routes on f32 centroids).
-    _, ms, plain_ms = worst["f32"]
-    nbytes = (cpad + Q) * d_pad * 4 + Q * (cpad // 128) * 4
-    report["centroid_scan"] = {"max_abs_err": max(w[0] for w in worst.values()), "ms": ms,
-                               "plain_ms": plain_ms, "library_ms": None,
-                               **bound(nbytes, 2 * Q * cpad * d_pad, F32_FLOPS)}
+    cases, worst = [], 0.0
+    for name, Q, C, d in SCAN_CASES:
+        data, queries = mixture(2, C, Q, d)
+        valid = torch.ones(C, dtype=torch.bool, device=dev)
+        valid[::997] = False
+        valid[128:256] = False  # an all-invalid window
+        d_pad = -(-d // centroid_scan.L) * centroid_scan.L
+        caug, qaug, cpad = centroid_scan._augment(torch.from_numpy(queries).to(dev),
+                                                  torch.from_numpy(data).to(dev), valid, d_pad)
+        cn2_mean = float((caug[:C][valid] ** 2).sum(1).mean())  # the size of a rank's terms
+        for bf16_rank in (False, True):
+            mode = "bf16" if bf16_rank else "f32"
+            rel, max_abs, n_real = scan_check(torch, caug, qaug, bf16_rank, cn2_mean)
+            worst = max(worst, max_abs)
+            line = (f"kernel centroid_scan {name}: Q={Q} Cpad={cpad} d_pad={d_pad} rank={mode} "
+                    f"max_rel_err={rel:.3e} (of |rank| + mean |c|^2 = {cn2_mean:.1f}) "
+                    f"max_abs_err={max_abs:.3e} over {n_real} real window minima "
+                    f"(rtol {SCAN_RTOL})")
+            if name not in SCAN_TIMED:
+                log(line)
+                continue
+            iters = 50 if Q < 1024 else 10
+            ms = cuda_ms(torch, lambda: centroid_scan.centroid_window_scan(caug, qaug, bf16_rank),
+                         iters)
+            plain_ms = cuda_ms(torch, lambda: centroid_scan.centroid_window_scan_plain(
+                caug, qaug, bf16_rank), 3)
+            g_ms = scan_gemm_ms(torch, caug, qaug, bf16_rank, 3)
+            # Bytes: both operands read once, the minima written once.
+            # Operations: one bf16 product (2 Q Cpad d_pad) on the bf16 tensor
+            # cores, or the f32 rank's three TF32 products on the TF32 ones:
+            # the TPU kernel's matrix-unit work, on this card's matrix unit.
+            nbytes = (cpad + Q) * d_pad * 4 + Q * (cpad // centroid_scan.L) * 4
+            flops = 2 * Q * cpad * d_pad
+            b = bound(nbytes, flops, BF16_FLOPS) if bf16_rank else bound(
+                nbytes, 3 * flops, TF32_FLOPS)
+            log(f"{line} kernel={ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the "
+                f"rank's product) plain={plain_ms:.4f} ms gemm_ms={g_ms:.4f} "
+                f"bound={b['bound_ms']:.4f} ms ({b['bound_by']}; "
+                f"{b['bound_ms'] / ms:.1%} of it)")
+            cases.append({"case": name, "rank": mode, "Q": Q, "Cpad": cpad, "d_pad": d_pad,
+                          "ms": ms, "plain_ms": plain_ms, "gemm_ms": g_ms, "max_abs_err": max_abs,
+                          **b})
+        del caug, qaug
+    # The entry's numbers are the large phase's stage 1 (an int8 index routes
+    # on f32 centroids: the f32 rank); every timed case is kept beside them.
+    head = next(c for c in cases if c["case"] == "large" and c["rank"] == "f32")
+    report["centroid_scan"] = {"max_abs_err": worst, "library_ms": None, "cases": cases,
+                               **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
 
 
 def kernel_rerank_int8(torch, report):
@@ -2780,6 +2835,7 @@ def phase_outofcore(torch, n: int, nq: int, report) -> None:
         centroid_scan.launches = 0
         sweep(torch, index, queries, gt, "outofcore", target=None)
         assert centroid_scan.launches > 0, "the windowed stage 1 did not run"
+        report["centroid_scan"]["launches"] += centroid_scan.launches  # after large's
 
         # The DEEP-shaped serving path: the index saved packed, the
         # in-memory index and view released, then served from disk.
@@ -3779,10 +3835,11 @@ def main() -> int:
     for name, c in (*sharded_launches.items(), *shardbuild_launches.items(),
                     *examples_launches.items(), *fuzz_launches.items()):
         report[name]["launches"] += c
-    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "cases")  # cases: the window scan's timed shapes in both rank modes
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         **{k: report[name][k] for k in keys}}
+         **{k: report[name][k] for k in keys if k in report[name]}}
         for name in REPLACES
     ]
     print(smi)  # the card's name and power limit, as nvidia-smi gives them

@@ -72,6 +72,9 @@
 
 namespace {
 
+#include "slab_ring.cuh"    // the mbarrier primitives
+#include "tensor_tile.cuh"  // TMA tiles, wgmma, tensor maps
+
 constexpr int BM = 64;    // points per block
 constexpr int BN = 128;   // centroids per tile
 constexpr int BK = 16;    // depth of a staged slice of d
@@ -470,7 +473,6 @@ constexpr int kTcBM = 64 * (kTcWarps / 4);       // points per block, 64 per war
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kSliceCols = 64;                  // bf16 columns of one swizzled slice
-constexpr int kRowBytes = 2 * kSliceCols;       // 128: the swizzle span
 constexpr int kMaxStages = 8;
 constexpr int kMinStages = 4;
 constexpr int kSmemBudget = 220 * 1024;  // resident tiles + ring; 1 KB more for alignment
@@ -479,6 +481,7 @@ constexpr int kSmemBudget = 220 * 1024;  // resident tiles + ring; 1 KB more for
 // the replica took 84 ms at 64, 104 ms at 128).
 constexpr int kReplicaBN = 64;
 constexpr int kNearestBN = 128;
+constexpr CUtensorMapDataType kBf16Map = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
 struct TcShape {
   int n, C;
@@ -487,137 +490,18 @@ struct TcShape {
   int resident;  // 1: the point-side tiles stay in shared memory for the whole walk
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Spin until the phase of parity `parity` has completed.  Every wait here
-// lasts microseconds; one that outlasts ~10 s of SM clock (a copy that
-// never lands) traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-
-// One TMA copy of a (rows x 64) box at column c0, row r0 into shared memory;
-// completion is counted in bytes on `bar`.  Out-of-bounds elements read 0.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int r0) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(r0)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
-// TMA writes: rows of 128 bytes, 8-row atoms 1,024 bytes apart (SBO), the
-// start address advanced 32 bytes per k-step inside the atom.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Wait until at most N committed groups of products are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator accesses across the async MMAs.
-template <int K>
-__device__ __forceinline__ void fence_regs(float (&d)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D (64 x N, f32 registers) (+)= A (64 x 16, shared) . B (N x 16, shared)^T,
-// both bf16 K-major.  `accumulate` 0 overwrites D.
-__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a, uint64_t b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64_t b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
 template <int N>
 struct Mma;
 template <>
 struct Mma<64> {
   __device__ __forceinline__ static void run(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-    wgmma_m64n64(d, a, b, acc);
+    wgmma_m64n64_bf16(d, a, b, acc);
   }
 };
 template <>
 struct Mma<128> {
   __device__ __forceinline__ static void run(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-    wgmma_m64n128(d, a, b, acc);
+    wgmma_m64n128_bf16(d, a, b, acc);
   }
 };
 
@@ -922,45 +806,6 @@ tc_kernel(const __grid_constant__ CUtensorMap map_c, const __grid_constant__ CUt
   epi.finish(P, p, sh.n, lane);
 }
 
-// cuTensorMapEncodeTiled, found through the runtime (no -lcuda on the link line).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    const bool ok = err == cudaSuccess && q == cudaDriverEntryPointSuccess;
-    return ok ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A (rows, cols) row-major bf16 matrix read in boxes of box_rows x 64
-// columns with the 128-byte swizzle; elements past rows or cols read 0.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kSliceCols, (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // X (n, d) and, for two products, Cb (n, d); cents (C, d); bf16, d a
 // multiple of 16, 16-byte aligned rows.
 template <class Epi, int TileN>
@@ -976,9 +821,9 @@ cudaError_t launch_tc(const void* X, const void* Cb, const void* cents, int n, i
   const int stages = fit < kMaxStages ? fit : kMaxStages;
   const int smem = (resident ? a_bytes : 0) + stages * stage_bytes + 1024;
   CUtensorMap mc, mx, mb;
-  cudaError_t err = make_map(&mc, cents, C, d, TileN);
-  if (err == cudaSuccess) err = make_map(&mx, X, n, d, kTcBM);
-  if (err == cudaSuccess) err = make_map(&mb, kOps > 1 ? Cb : X, n, d, kTcBM);
+  cudaError_t err = make_map(&mc, cents, kBf16Map, 2, C, d, TileN);
+  if (err == cudaSuccess) err = make_map(&mx, X, kBf16Map, 2, n, d, kTcBM);
+  if (err == cudaSuccess) err = make_map(&mb, kOps > 1 ? Cb : X, kBf16Map, 2, n, d, kTcBM);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(tc_kernel<Epi, TileN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);

@@ -134,11 +134,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.spf_rerank_int8mxu_prepare.restype = i
     lib.spf_window_scan.argtypes = [
         p, p, p,             # caug, qaug, out
+        p,                   # scratch: spf_window_scan_scratch bytes
         i, i, i,             # Q, Cpad, d_pad
-        i,                   # bf16 rank
+        i,                   # bf16 rank (else 3xTF32)
         p,                   # stream
     ]
     lib.spf_window_scan.restype = i
+    lib.spf_window_scan_scratch.argtypes = [i, i, i, i]  # Q, Cpad, d_pad, bf16 rank
+    lib.spf_window_scan_scratch.restype = ctypes.c_longlong
     lib.spf_replica_topk.argtypes = [
         p, p, p, p,          # X, base, cents, Cb = cents[base] (bf16; null for f32)
         p, i,                # db (n,), db given (0: scratch the kernel fills)

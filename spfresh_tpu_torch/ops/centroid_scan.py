@@ -6,8 +6,10 @@ finds each query's nprobe nearest centroids without a (Q, C) top-k:
 
 pass 1 (``centroid_window_scan``): rank(q, c) = |c|^2 - 2 q.c reduced to
   its minimum over each 128-centroid window; only the (Q, Cpad/128) minima
-  are kept.  CUDA tensors launch ``csrc/centroid_scan.cu``; CPU tensors run
-  ``centroid_window_scan_plain``.
+  are kept.  CUDA tensors launch ``csrc/centroid_scan.cu`` (tensor-core
+  products: one bf16 pass, or 3xTF32 for the f32 rank, whose operand split
+  is ``tf32_split`` and whose arithmetic ``centroid_window_scan_tf32x3``
+  repeats); CPU tensors run ``centroid_window_scan_plain``.
 pass 2: the nprobe + ``MARGIN`` best windows per query are reranked exactly
   by the slab rerank (``ops.rerank``) with the augmented centroid matrix
   viewed as (W, 128, d_pad) window slabs.
@@ -48,8 +50,7 @@ def centroid_window_scan_plain(caug: torch.Tensor, qaug: torch.Tensor,
     cn2 = torch.sum(caug * caug, dim=1)
     a, b = caug, qaug
     if bf16_rank:
-        a = a.to(torch.bfloat16).to(torch.float32)
-        b = b.to(torch.bfloat16).to(torch.float32)
+        a, b = bf16_operand(a), bf16_operand(b)
     out = torch.empty((Q, W), dtype=torch.float32, device=caug.device)
     step = max(1, PLAIN_CHUNK_BYTES // max(1, Cpad * 4))
     for s in range(0, Q, step):
@@ -58,12 +59,54 @@ def centroid_window_scan_plain(caug: torch.Tensor, qaug: torch.Tensor,
     return out
 
 
+def bf16_operand(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to nearest-even bf16, back in f32: the bf16 rank's dot
+    operands (the kernel's first pass writes them as bf16)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) f32 tensors with hi = x rounded to TF32 (10 explicit
+    mantissa bits, nearest, ties away from zero: ``cvt.rna.tf32.f32``) and
+    lo = x - hi rounded the same way; hi + lo is within 2^-22 |x| of x.  The
+    operands of the kernel's f32 rank."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def centroid_window_scan_tf32x3(caug: torch.Tensor, qaug: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's f32-rank arithmetic in plain PyTorch: both operands
+    split by ``tf32_split``, the rank ``|c|^2 + (qlo.chi + qhi.clo +
+    qhi.chi)`` with exact products and f32 sums (the lo.lo term dropped),
+    then the window minimum.  The kernel is held to
+    ``centroid_window_scan_plain``; this shows the split keeps f32 grade."""
+    Cpad, _ = caug.shape
+    Q = qaug.shape[0]
+    W = Cpad // L
+    cn2 = torch.sum(caug * caug, dim=1)
+    chi, clo = tf32_split(caug)
+    qhi, qlo = tf32_split(qaug)
+    out = torch.empty((Q, W), dtype=torch.float32, device=caug.device)
+    step = max(1, PLAIN_CHUNK_BYTES // max(1, Cpad * 4))
+    for s in range(0, Q, step):
+        hi, lo = qhi[s : s + step], qlo[s : s + step]
+        rank = cn2[None, :] + ((lo @ chi.T + hi @ clo.T) + hi @ chi.T)
+        out[s : s + step] = rank.reshape(-1, W, L).amin(dim=-1)
+    return out
+
+
 def centroid_window_scan(caug: torch.Tensor, qaug: torch.Tensor,
                          bf16_rank: bool) -> torch.Tensor:
     """Per-window rank minima (Q, Cpad/128) f32 of ``caug`` (Cpad, d_pad)
-    f32, Cpad a multiple of ``CT``, against ``qaug`` (Q, d_pad) f32 holding
-    ``-2 q``: entry (q, w) is the min over c in window w of
-    ``|c|^2 + c . qaug[q]``."""
+    f32, Cpad a multiple of ``CT`` and d_pad of ``L``, against ``qaug``
+    (Q, d_pad) f32 holding ``-2 q``: entry (q, w) is the min over c in
+    window w of ``|c|^2 + c . qaug[q]``."""
     global launches
     if caug.ndim != 2 or qaug.ndim != 2 or caug.shape[1] != qaug.shape[1]:
         raise ValueError(f"expected caug (Cpad, d_pad) and qaug (Q, d_pad); got "
@@ -73,6 +116,8 @@ def centroid_window_scan(caug: torch.Tensor, qaug: torch.Tensor,
     Cpad, d_pad = caug.shape
     if Cpad % CT:
         raise ValueError(f"Cpad={Cpad} must be a multiple of {CT}")
+    if d_pad == 0 or d_pad % L:
+        raise ValueError(f"d_pad={d_pad} must be a positive multiple of {L}")
     if caug.device != qaug.device:
         raise ValueError("caug and qaug must be on one device")
     if caug.device.type == "cpu":
@@ -80,20 +125,20 @@ def centroid_window_scan(caug: torch.Tensor, qaug: torch.Tensor,
     if caug.device.type != "cuda":
         raise ValueError(f"no centroid window scan for device {caug.device}")
     Q = qaug.shape[0]
-    if d_pad % 16:
-        raise ValueError(f"d_pad={d_pad} must be a multiple of 16")
-    if (Q + 127) // 128 > 65535:
-        raise ValueError(f"Q={Q} exceeds the kernel's grid")
     for name, t in (("caug", caug), ("qaug", qaug)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    lib = _build.library()
+    bf16 = int(bool(bf16_rank))
     out = torch.empty((Q, Cpad // L), dtype=torch.float32, device=caug.device)
+    scratch = torch.empty(lib.spf_window_scan_scratch(Q, Cpad, d_pad, bf16), dtype=torch.uint8,
+                          device=caug.device)
     with torch.cuda.device(caug.device):  # the library launches on the current device
-        rc = _build.library().spf_window_scan(
-            caug.data_ptr(), qaug.data_ptr(), out.data_ptr(), Q, Cpad, d_pad,
-            int(bool(bf16_rank)), torch.cuda.current_stream(caug.device).cuda_stream,
+        rc = lib.spf_window_scan(
+            caug.data_ptr(), qaug.data_ptr(), out.data_ptr(), scratch.data_ptr(), Q, Cpad, d_pad,
+            bf16, torch.cuda.current_stream(caug.device).cuda_stream,
         )
     _build.check(rc, "centroid window scan")
     launches += 1

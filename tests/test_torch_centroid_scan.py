@@ -245,3 +245,99 @@ def test_search_over_windowed_route_equals_jax(jax_f32_index, monkeypatch, nprob
     np.testing.assert_array_equal(got_i, want_i)
     fin = np.isfinite(want_d)
     np.testing.assert_allclose(got_d[fin], want_d[fin], rtol=1e-5)
+
+
+# The operands of the CUDA kernel's two rank modes, on CASES' inputs as
+# _augment lays them out (sentinel rows of 1e18, d padded to 128 or to
+# 1,024), against the JAX package.
+SCAN_RTOL = 1e-5  # chip_smoke.SCAN_RTOL: of |rank| + mean |c|^2
+
+
+def _operands(case, d_pad):
+    seed, C, Q, d, _, holes = CASES[case]
+    rng = np.random.default_rng(seed)
+    cents = rng.standard_normal((C, d)).astype(np.float32)
+    qf = rng.standard_normal((Q, d)).astype(np.float32)
+    valid = np.ones(C, bool)
+    valid[:: 3 if holes else 7] = False  # sentinel rows in every case
+    caug, qaug, _ = tcs._augment(torch.from_numpy(qf), torch.from_numpy(cents),
+                                 torch.from_numpy(valid), d_pad)
+    return caug, qaug, valid, qf, cents
+
+
+@pytest.mark.parametrize("d_pad", [128, 1024])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_operand_rounding_matches_jax(case, d_pad):
+    caug, qaug, *_ = _operands(case, d_pad)
+    for x in (caug, qaug):
+        want = np.asarray(jnp.asarray(x.numpy()).astype(jnp.bfloat16).astype(jnp.float32))
+        np.testing.assert_array_equal(tcs.bf16_operand(x).numpy(), want)
+
+
+@pytest.mark.parametrize("d_pad", [128, 1024])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tf32_split(case, d_pad):
+    """hi keeps at most 10 explicit mantissa bits (the low 13 are 0) and is
+    x rounded to nearest; hi + lo is within 2^-22 of |x|; lo is a TF32
+    value too."""
+    caug, qaug, *_ = _operands(case, d_pad)
+    for x in (caug, qaug):
+        hi, lo = tcs.tf32_split(x)
+        for part in (hi, lo):
+            assert not bool((part.view(torch.int32) & 0x1FFF).any())
+        x64 = x.double()
+        assert bool(((hi.double() - x64).abs() <= 2.0 ** -11 * x64.abs()).all())
+        assert bool(((hi.double() + lo.double() - x64).abs() <= 2.0 ** -22 * x64.abs()).all())
+
+
+@pytest.mark.parametrize("d_pad", [128, 1024])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tf32x3_rank_matches_jax_kernel(case, d_pad):
+    """The CUDA kernel's f32-rank arithmetic (3xTF32 from tf32_split) in
+    plain PyTorch against the Pallas kernel at bf16_rank=False (HIGHEST) in
+    interpret mode: the same windows finite (sentinel windows are inf from
+    d_pad 384 on), the rest within SCAN_RTOL of |rank| + mean |c|^2."""
+    caug, qaug, valid, qf, cents = _operands(case, d_pad)
+    Q = qf.shape[0]
+    jcaug, jqaugT, _, _ = jcs._augment(jnp.asarray(qf), jnp.asarray(cents), jnp.asarray(valid),
+                                       d_pad)
+    want = np.asarray(jcs.pallas_centroid_window_scan(jcaug, jqaugT, interpret=True,
+                                                      bf16_rank=False)).T[:Q]
+    got = tcs.centroid_window_scan_tf32x3(caug, qaug).numpy()
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    # A window of sentinel rows only has |c|^2 ~ 1.3e38 at d_pad 128 and
+    # inf from 384 on; every other window's minimum is a real rank.
+    live = np.zeros(caug.shape[0], bool)
+    live[: len(valid)] = valid
+    dead = ~live.reshape(-1, tcs.L).any(1)
+    np.testing.assert_array_equal(fin, np.broadcast_to(~dead | (d_pad < 384), fin.shape))
+    cn2_mean = float((cents[valid].astype(np.float64) ** 2).sum(1).mean())
+    rel = np.abs(got[fin] - want[fin]) / (np.abs(want[fin]) + cn2_mean)
+    assert rel.max() <= SCAN_RTOL, rel.max()
+
+
+@pytest.mark.parametrize("bad", [
+    ("d_pad", 64), ("d_pad", 96), ("d_pad", 200), ("d_pad", 0),
+    ("Cpad", 128), ("Cpad", 1536),
+    ("dtype", torch.float64), ("dtype", torch.bfloat16), ("dtype", torch.float16),
+])
+def test_window_scan_refuses_what_the_kernel_does_not_take(bad):
+    """d_pad must be a positive multiple of 128, Cpad of 1,024, both
+    operands float32; each is refused before any device is chosen."""
+    what, value = bad
+    cpad, d_pad, dtype = 1024, 128, torch.float32
+    if what == "d_pad":
+        d_pad = value
+    elif what == "Cpad":
+        cpad = value
+    else:
+        dtype = value
+    caug = torch.zeros((cpad, d_pad), dtype=dtype)
+    qaug = torch.zeros((3, d_pad), dtype=dtype)
+    with pytest.raises(TypeError if what == "dtype" else ValueError,
+                       match="float32" if what == "dtype" else str(value)):
+        tcs.centroid_window_scan(caug, qaug, True)
+    if what == "dtype":  # either operand alone
+        with pytest.raises(TypeError, match="float32"):
+            tcs.centroid_window_scan(caug.float(), qaug, False)
