@@ -56,6 +56,7 @@ from spfresh_tpu_torch.ops.distances import canonical_metric, pairwise_distance,
 from spfresh_tpu_torch.ops.rerank import padded_rerank_distances
 from spfresh_tpu_torch.ops.topk import centroid_topk, smallest_k, smallest_k_unique
 from spfresh_tpu_torch.utils import metrics
+from spfresh_tpu_torch.utils.profiling import span
 
 MANIFEST = "manifest.json"
 CENTROIDS_FILE = "centroids.npy.gz"
@@ -546,9 +547,16 @@ class SpannIndex:
         pad a multiple of 16 with ``slab_growth_slots`` spare slots, d_pad a
         multiple of 128.  After live updates only the mutated postings are
         written into it in place; it is packed in full after a bulk load or
-        when the updates do not fit (counted as ``view.full_repacks``)."""
+        when the updates do not fit (counted as ``view.full_repacks``).  Each
+        refresh is a ``view.refresh`` span over the dirty postings (every
+        posting where there was no view to update)."""
         if self._padded_view is not None and self._padded_gen == self._gen:
             return self._padded_view
+        stale = self._padded_view is not None and self._dirty_padded is not None
+        with span("view.refresh", len(self._dirty_padded) if stale else len(self.postings)):
+            return self._refresh_padded_view()
+
+    def _refresh_padded_view(self) -> PaddedView:
         if (self._padded_view is not None and self._dirty_padded is not None
                 and self._apply_padded_updates()):
             self._padded_gen = self._gen
@@ -833,32 +841,36 @@ class SpannIndex:
         or ``"int8"`` (per-query codes ``rint(q / s)`` with
         ``s = max|q| / 127``, dequantized on the device as ``codes * s``).
         Results are the exact search at the staged coordinates."""
-        queries = np.atleast_2d(np.asarray(queries, np.float32))
-        if queries.shape[1] != self.dim:
-            raise ValueError(f"query dim {queries.shape[1]} != index dim {self.dim}")
-        metrics.inc("search.queries", queries.shape[0])
-        if nprobe is None:
-            nprobe = self.config.search.nprobe or k  # reference: nprobe == k
-        if prune_factor is None:
-            prune_factor = self.config.search.prune_factor
-        bs = batch_size or self.config.search.query_batch_size
-        view = self.padded_view()
-        eff_nprobe = max(1, min(int(nprobe), int(view.centroids.shape[0])))
-        qpad = np.zeros((queries.shape[0], view.d_pad), np.float32)
-        qpad[:, : self.dim] = queries
-        out_i, out_d = [], []
-        for s in range(0, queries.shape[0], bs):
-            qb = self._stage_queries(qpad[s : s + bs])
-            qi, qd = _search_padded(qb, view, k=int(k), nprobe=eff_nprobe, metric=self.metric,
-                                    prune_factor=prune_factor)
-            out_i.append(qi)
-            out_d.append(qd)
-        metrics.inc(f"search.engine.{self.device.type}")
-        # One device->host copy for the whole call; ids widen to int64.
-        return (
-            torch.cat(out_i).cpu().numpy().astype(np.int64),
-            torch.cat(out_d).cpu().numpy(),
-        )
+        with span("search") as sp:
+            queries = np.atleast_2d(np.asarray(queries, np.float32))
+            sp.items = queries.shape[0]
+            if queries.shape[1] != self.dim:
+                raise ValueError(f"query dim {queries.shape[1]} != index dim {self.dim}")
+            if nprobe is None:
+                nprobe = self.config.search.nprobe or k  # reference: nprobe == k
+            if prune_factor is None:
+                prune_factor = self.config.search.prune_factor
+            bs = batch_size or self.config.search.query_batch_size
+            view = self.padded_view()
+            eff_nprobe = max(1, min(int(nprobe), int(view.centroids.shape[0])))
+            out_i, out_d = [], []
+            for s in range(0, queries.shape[0], bs):
+                qh = queries[s : s + bs]
+                with span("search.stage", qh.shape[0]):
+                    qpad = np.zeros((qh.shape[0], view.d_pad), np.float32)
+                    qpad[:, : self.dim] = qh
+                    qb = self._stage_queries(qpad)
+                qi, qd = _search_padded(qb, view, k=int(k), nprobe=eff_nprobe,
+                                        metric=self.metric, prune_factor=prune_factor)
+                out_i.append(qi)
+                out_d.append(qd)
+            metrics.inc(f"search.engine.{self.device.type}")
+            # One device->host copy for the whole call; ids widen to int64.
+            with span("search.d2h"):
+                return (
+                    torch.cat(out_i).cpu().numpy().astype(np.int64),
+                    torch.cat(out_d).cpu().numpy(),
+                )
 
     def _stage_queries(self, a: np.ndarray) -> torch.Tensor:
         """One padded query batch as f32 on the device, through the

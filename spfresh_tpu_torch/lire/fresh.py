@@ -33,6 +33,7 @@ from spfresh_tpu_torch.lire.protocol import LireConfig, LireProtocol
 from spfresh_tpu_torch.lire.storage import LireStorage
 from spfresh_tpu_torch.ops.distances import pairwise_distance
 from spfresh_tpu_torch.utils import metrics
+from spfresh_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -210,56 +211,58 @@ class SpFreshIndex:
 
         vectors = np.asarray(vectors, np.float32)
         vector_ids = np.asarray(vector_ids, np.int64)
-        nearest, _ = self._nearest_postings(vectors)
-        try:
-            versions = self.storage.store_vectors_multi(nearest, vector_ids, vectors)
-        except LireStorageError:
-            # A destination was retired by a concurrent background op between
-            # routing and the append: fall back to per-vector protocol
-            # inserts, which re-route to the CURRENT nearest partition.
-            versions = []
-            affected: Set[int] = set()
-            with self._lock:
-                for v, vid in zip(vectors, vector_ids):
-                    res = self.protocol.insert(v, int(vid))
-                    versions.append(res.version)
-                    affected.update(res.partitions_affected)
-                    for p in res.partitions_affected:
-                        self._map_add(int(vid), p)
-            # Sync where the re-routes LANDED (a retired original re-routes
-            # to a successor that is not in ``nearest``), plus any original
-            # that is still live.
-            affected.update(nearest.tolist())
-            self._sync_mirror(affected & set(self.storage.posting_ids()))
-            return versions
-        # Mirror the appends group-by-group (no storage re-read).
-        order = np.argsort(nearest, kind="stable")
-        bounds = np.searchsorted(nearest[order], np.unique(nearest))
-        groups = np.split(order, bounds[1:]) if len(bounds) else []
-        for grp in groups:
-            if len(grp) == 0:
-                continue
-            pid = int(nearest[grp[0]])
-            with self._lock:
-                entry = self.index.postings.get(pid)
-                if entry is not None:
-                    # Same guard single insert() has: a background op's
-                    # mirror sync may already include these vids (it reads
-                    # storage, where the batch append landed first) —
-                    # appending again would duplicate them in the mirror.
-                    fresh_m = ~np.isin(vector_ids[grp], entry[0])
-                    g2 = grp[fresh_m]
-                    if len(g2):
-                        self.index.replace_posting(
-                            pid,
-                            np.concatenate([entry[0], vector_ids[g2]]),
-                            np.concatenate([entry[1], vectors[g2]]),
-                        )
-                for vid in vector_ids[grp]:
-                    self._map_add(int(vid), pid)
-            if self.protocol.needs_split(pid):
-                self.protocol.schedule_maintenance(Split(pid))
-        return list(versions)
+        with span("lire.insert", len(vector_ids)):
+            nearest, _ = self._nearest_postings(vectors)
+            try:
+                versions = self.storage.store_vectors_multi(nearest, vector_ids, vectors)
+            except LireStorageError:
+                # A destination was retired by a concurrent background op between
+                # routing and the append: fall back to per-vector protocol
+                # inserts, which re-route to the CURRENT nearest partition.
+                with span("lire.insert.fallback", len(vector_ids)):
+                    versions = []
+                    affected: Set[int] = set()
+                    with self._lock:
+                        for v, vid in zip(vectors, vector_ids):
+                            res = self.protocol.insert(v, int(vid))
+                            versions.append(res.version)
+                            affected.update(res.partitions_affected)
+                            for p in res.partitions_affected:
+                                self._map_add(int(vid), p)
+                    # Sync where the re-routes LANDED (a retired original
+                    # re-routes to a successor that is not in ``nearest``),
+                    # plus any original that is still live.
+                    affected.update(nearest.tolist())
+                    self._sync_mirror(affected & set(self.storage.posting_ids()))
+                    return versions
+            # Mirror the appends group-by-group (no storage re-read).
+            order = np.argsort(nearest, kind="stable")
+            bounds = np.searchsorted(nearest[order], np.unique(nearest))
+            groups = np.split(order, bounds[1:]) if len(bounds) else []
+            for grp in groups:
+                if len(grp) == 0:
+                    continue
+                pid = int(nearest[grp[0]])
+                with self._lock:
+                    entry = self.index.postings.get(pid)
+                    if entry is not None:
+                        # Same guard single insert() has: a background op's
+                        # mirror sync may already include these vids (it reads
+                        # storage, where the batch append landed first) —
+                        # appending again would duplicate them in the mirror.
+                        fresh_m = ~np.isin(vector_ids[grp], entry[0])
+                        g2 = grp[fresh_m]
+                        if len(g2):
+                            self.index.replace_posting(
+                                pid,
+                                np.concatenate([entry[0], vector_ids[g2]]),
+                                np.concatenate([entry[1], vectors[g2]]),
+                            )
+                    for vid in vector_ids[grp]:
+                        self._map_add(int(vid), pid)
+                if self.protocol.needs_split(pid):
+                    self.protocol.schedule_maintenance(Split(pid))
+            return list(versions)
 
     def delete(self, vector_id: int, posting_id: Optional[int] = None) -> List[int]:
         """Tombstone a vector everywhere it lives (boundary replicas
@@ -345,77 +348,79 @@ class SpFreshIndex:
         from spfresh_tpu_torch.lire.storage import LireStorageError
 
         requested = [int(v) for v in vector_ids]
-        deleted: Set[int] = set()
-        pending: Set[int] = set(requested)
-        touched: Set[int] = set()
-        # Re-resolve until stable, and schedule maintenance only AFTER the
-        # tombstones land: a merge kicked off mid-loop runs concurrently and
-        # can carry a not-yet-tombstoned replica into a successor the loop's
-        # snapshot never sees (the copy then stays searchable forever).
-        for round_ in range(4):
-            by_pid: Dict[int, List[int]] = {}
-            with self._lock:
-                for vid in pending:
-                    pids = (
-                        (self._id_map.get(vid) or self.storage.postings_of(vid))
-                        if round_ == 0
-                        else self.storage.postings_of(vid)
-                    )
-                    for pid in pids:
-                        by_pid.setdefault(int(pid), []).append(vid)
-            if not by_pid:
-                break
-            for pid, vids in sorted(by_pid.items()):
-                try:
-                    hit_ids, _ = self.storage.mark_deleted_batch(pid, vids)
-                except LireStorageError:
-                    continue  # retired mid-round: next round re-resolves
-                if not hit_ids:
-                    continue
-                deleted.update(hit_ids)
-                touched.add(pid)
-                metrics.inc("lire.delete", len(hit_ids))
+        with span("lire.delete", len(requested)):
+            deleted: Set[int] = set()
+            pending: Set[int] = set(requested)
+            touched: Set[int] = set()
+            # Re-resolve until stable, and schedule maintenance only AFTER the
+            # tombstones land: a merge kicked off mid-loop runs concurrently and
+            # can carry a not-yet-tombstoned replica into a successor the loop's
+            # snapshot never sees (the copy then stays searchable forever).
+            for round_ in range(4):
+                by_pid: Dict[int, List[int]] = {}
                 with self._lock:
-                    if pid in self.index.postings:
-                        ids, vecs = self.index.postings[pid]
-                        keep = ~np.isin(ids, hit_ids)
-                        self.index.replace_posting(pid, ids[keep], vecs[keep])
-                    for vid in hit_ids:
-                        self._id_map.get(vid, set()).discard(pid)
-            pending = {
-                vid for vid in pending if self.storage.postings_of(vid)
-            }
-            # A zero-hit round is NOT terminal (same rule delete() earned
-            # from the stress suite): with a stale round-0 map pid the
-            # tombstone misses, yet re-resolution finds the copy LIVE at
-            # its post-move home — breaking on ``not hit_any`` returned 0
-            # while the vector kept serving.  Rounds are bounded; pending
-            # is resolved fresh from storage each one.
-            if not pending:
-                break
-        # Same stale-mirror sweep as delete(): a round-0 stale map pid whose
-        # batch tombstone found nothing (the copy had already been moved out
-        # by a background Reassign whose _after_op sync has not landed) kept
-        # its pre-move MIRROR copy serving.  Once a vid has no live copy in
-        # storage, any mirror copy is stale by definition.
-        with self._lock:
-            for vid in deleted:
-                if self.storage.postings_of(vid):
-                    continue  # still live elsewhere (racing mover): not stale
-                for pid in sorted(self._id_map.get(vid, set())):
-                    self._mirror_remove(vid, pid)
-        for pid in sorted(touched):
-            if not self.storage.has_posting(pid):
-                continue
-            if self.protocol.needs_merge(pid):
-                merge = self.protocol._plan_merge(pid)
-                if merge is not None:
-                    self.protocol.schedule_maintenance(merge)
-            if self.storage.needs_garbage_collection(
-                pid, self.lire_config.gc_threshold
-            ):
-                self.storage.collect_garbage(pid)
-        return len(deleted)
+                    for vid in pending:
+                        pids = (
+                            (self._id_map.get(vid) or self.storage.postings_of(vid))
+                            if round_ == 0
+                            else self.storage.postings_of(vid)
+                        )
+                        for pid in pids:
+                            by_pid.setdefault(int(pid), []).append(vid)
+                if not by_pid:
+                    break
+                for pid, vids in sorted(by_pid.items()):
+                    try:
+                        with span("lire.delete.storage", len(vids)):
+                            hit_ids, _ = self.storage.mark_deleted_batch(pid, vids)
+                    except LireStorageError:
+                        continue  # retired mid-round: next round re-resolves
+                    if not hit_ids:
+                        continue
+                    deleted.update(hit_ids)
+                    touched.add(pid)
+                    metrics.inc("lire.delete", len(hit_ids))
+                    with self._lock, span("lire.delete.mirror", len(hit_ids)):
+                        if pid in self.index.postings:
+                            ids, vecs = self.index.postings[pid]
+                            keep = ~np.isin(ids, hit_ids)
+                            self.index.replace_posting(pid, ids[keep], vecs[keep])
+                        for vid in hit_ids:
+                            self._id_map.get(vid, set()).discard(pid)
+                pending = {
+                    vid for vid in pending if self.storage.postings_of(vid)
+                }
+                # A zero-hit round is NOT terminal (same rule delete() earned
+                # from the stress suite): with a stale round-0 map pid the
+                # tombstone misses, yet re-resolution finds the copy LIVE at
+                # its post-move home — breaking on ``not hit_any`` returned 0
+                # while the vector kept serving.  Rounds are bounded; pending
+                # is resolved fresh from storage each one.
+                if not pending:
+                    break
+            # Same stale-mirror sweep as delete(): a round-0 stale map pid whose
+            # batch tombstone found nothing (the copy had already been moved out
+            # by a background Reassign whose _after_op sync has not landed) kept
+            # its pre-move MIRROR copy serving.  Once a vid has no live copy in
+            # storage, any mirror copy is stale by definition.
+            with self._lock, span("lire.delete.mirror", len(deleted)):
+                for vid in deleted:
+                    if self.storage.postings_of(vid):
+                        continue  # still live elsewhere (racing mover): not stale
+                    for pid in sorted(self._id_map.get(vid, set())):
+                        self._mirror_remove(vid, pid)
+            for pid in sorted(touched):
+                if not self.storage.has_posting(pid):
+                    continue
+                if self.protocol.needs_merge(pid):
+                    merge = self.protocol._plan_merge(pid)
+                    if merge is not None:
+                        self.protocol.schedule_maintenance(merge)
+                if self.storage.needs_garbage_collection(
+                    pid, self.lire_config.gc_threshold
+                ):
+                    self.storage.collect_garbage(pid)
+            return len(deleted)
 
     # -- search ------------------------------------------------------------
 
@@ -423,8 +428,12 @@ class SpFreshIndex:
         # index.search refreshes the view's tensors in place; under the lock
         # no background mirror update interleaves with that write, and the
         # view is read only by this thread (CUDA work stays in stream order).
-        with self._lock:
+        with span("lire.search.lock"):
+            self._lock.acquire()
+        try:
             return self.index.search(queries, k, **kw)
+        finally:
+            self._lock.release()
 
     def _nearest_postings(self, vectors: np.ndarray):
         """Route vectors to their nearest posting using a centroid-only

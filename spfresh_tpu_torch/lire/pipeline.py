@@ -22,6 +22,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 from spfresh_tpu_torch.lire.operations import LireContext, OperationResult, PartitionOperation
 from spfresh_tpu_torch.utils import metrics
+from spfresh_tpu_torch.utils.profiling import current_span_id, span
 
 log = logging.getLogger(__name__)
 
@@ -110,7 +111,8 @@ class TwoStagePipeline:
         affected = [int(p) for p in op.get_affected_partitions()]
         for pid in affected:
             self._set_status(pid, PartitionStatus.PROCESSING)
-        self._queue.put((op, affected))
+        # The submitting span, the cause of the worker's ``lire.op`` span.
+        self._queue.put((op, affected, current_span_id()))
 
     def drain(self) -> None:
         """Block until every submitted task has been processed."""
@@ -152,16 +154,20 @@ class TwoStagePipeline:
             if task is _SHUTDOWN:
                 self._queue.task_done()
                 return
-            op, affected = task
+            op, affected, cause = task
             try:
-                outcome = self._process(op, affected)
-                with self._status_lock:
-                    self._outcomes.append(outcome)
-                if self.on_complete is not None:
-                    try:
-                        self.on_complete(outcome)
-                    except Exception:  # callback bugs must not kill the worker
-                        log.exception("LIRE on_complete callback failed")
+                # Closed before task_done: a drain() sees the op's span counted.
+                with span("lire.op", cause=cause) as sp:
+                    outcome = self._process(op, affected)
+                    if outcome.result is not None:
+                        sp.items = outcome.result.vectors_moved
+                    with self._status_lock:
+                        self._outcomes.append(outcome)
+                    if self.on_complete is not None:
+                        try:
+                            self.on_complete(outcome)
+                        except Exception:  # callback bugs must not kill the worker
+                            log.exception("LIRE on_complete callback failed")
             except Exception:
                 # A raise anywhere outside execute()'s own handling must not
                 # kill the worker: a dead worker leaves task_done uncalled and
