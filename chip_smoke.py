@@ -29,14 +29,19 @@ Phases, each printing a line:
               timed alone, and at its edges (d 16 to 4,096 at pads 4 to
               2,052, one to three column passes; one slab under 4,096
               pairs, one pair, slabs of equal rows, out-of-range rows
-              giving NaN rows; unaligned code tables raise).
+              giving NaN rows; unaligned code tables raise); the row
+              select (topk_select) bit-equal to its plain version at
+              TOPK_CASES (the search's shapes, ties, +-0, +-inf, NaNs,
+              k = n, long rows), timed against torch.topk on the values.
 4. main     — the bench corpus (1M x 128 Gaussian mixture, seed 12345), a
               KMeans++ bf16 build through SpannIndexBuilder on "cuda",
               padded_view(), exact ground truth on the card, and an nprobe
               sweep to recall@10 >= 0.90; asserts the rerank and replica
               kernels ran in it; then device time by operation
               (torch.profiler) over 3 searches at the recall point, the
-              rerank on the phase's own stage-1 rows, and a full-probe
+              rerank on the phase's own stage-1 rows, one search's
+              row-select launches (3 a batch; no profiled search runs
+              aten::topk), and a full-probe
               search of 8,192 queries in one batch (the probe axis taken
               in chunks; peak memory logged) whose first 64 rows must equal
               an unchunked search.
@@ -238,6 +243,7 @@ REPLACES = {
     "pairwise": "spfresh_tpu/ops/pallas/pairwise.py:58",
     "nearest_centroid": "spfresh_tpu/ops/pallas/replica.py:347",
     "rerank_int8mxu": "spfresh_tpu/ops/pallas/rerank.py:376",
+    "topk_select": "none (lax.top_k, spfresh_tpu/ops/topk.py::smallest_k)",
 }
 SOURCES = {
     "rerank": "spfresh_tpu_torch/csrc/rerank.cu",
@@ -247,6 +253,7 @@ SOURCES = {
     "pairwise": "spfresh_tpu_torch/csrc/pairwise.cu",
     "nearest_centroid": "spfresh_tpu_torch/csrc/replica.cu",
     "rerank_int8mxu": "spfresh_tpu_torch/csrc/rerank_int8mxu.cu",
+    "topk_select": "spfresh_tpu_torch/csrc/topk_select.cu",
 }
 # The card's published peaks (H100 SXM data sheet, dense): the bound of a
 # kernel is the larger of its bytes over HBM_BPS and its operations over the
@@ -279,6 +286,31 @@ SCAN_CASES = (("large", 8192, 43_300, 128), ("outofcore", 8192, 53_898, 96),
               ("q64", 64, 43_300, 128), ("d1024", 8192, 43_300, 960),
               ("q1", 1, 43_300, 128), ("q8229", 8192 + 37, 43_300, 128))
 SCAN_TIMED = ("large", "outofcore", "q64", "d1024")  # the cases timed
+# The row select's checks: (name, rows, n, k, rows' kind).  The search's
+# shapes (stage 1 at main's 11,008 postings and a 64-query batch, the dedup
+# prefilter of k 10 x max_dup 8 and 16, its final select, the windowed
+# route's window minima and centroids, a chunked-route row, a corpus-wide
+# row), then the orders' hazards: full probe (k = n, rounds of ranks), rows
+# of ties (the column passes), -0.0/+0.0, +-inf and NaNs of both signs,
+# k = n, k = 1, one column, long rows in tiles and in rounds, and a long
+# row whose tiles' selections would not fit (read from global memory).
+# brute_force_search's two-stage rows take tiles too.
+TOPK_CASES = (("stage1", 8192, 11_008, 8, "centroids"), ("stage1_q64", 64, 11_008, 8, "centroids"),
+              ("prefilter80", 8192, 2688, 80, "candidates"),
+              ("prefilter160", 8192, 2688, 160, "candidates"),
+              ("final", 8192, 160, 10, "candidates"),
+              ("window_minima", 8192, 344, 16, "centroids"),
+              ("window_centroids", 8192, 2048, 8, "centroids"),
+              ("chunked", 8192, 8 + 8192, 8, "centroids"),
+              ("corpus_row", 16, 1_000_000, 100, "centroids"),
+              ("brute_two_stage", 1024, 320 + 65_536, 320, "centroids"),
+              ("full_probe", 512, 11_008, 11_008, "centroids"),
+              ("ties", 1024, 11_008, 8, "ties"), ("ties_warp", 4096, 700, 40, "ties"),
+              ("specials", 4096, 3000, 50, "specials"), ("specials_k_n", 64, 300, 300, "specials"),
+              ("specials_k1", 4096, 500, 1, "specials"), ("one_column", 64, 1, 1, "specials"),
+              ("long_rounds", 8, 40_000, 5000, "ties"), ("long_stream", 8, 40_000, 20_000, "ties"))
+TOPK_TIMED = ("stage1", "stage1_q64", "prefilter80", "prefilter160", "final", "window_minima",
+              "window_centroids", "chunked", "corpus_row", "brute_two_stage")
 # The shardbuild phase: a device list of 4 entries (cuda:0 repeated); the
 # binary and nested builds on main's corpus; the out-of-core build of main's
 # corpus in 8 tiles; 65,536 rows of manhattan's.
@@ -496,6 +528,7 @@ def phase_kernels(torch, report):
     kernel_pairwise(torch, report)
     kernel_int8mxu(torch, report)
     int8mxu_edge_cases(torch)
+    kernel_topk_select(torch, report)
 
 
 def schedule_stats(torch, rows, cpad: int) -> str:
@@ -981,6 +1014,106 @@ def kernel_centroid_scan(torch, report):
                                **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
 
 
+def topk_rows(torch, rows: int, n: int, kind: str, seed: int):
+    """(rows, n) f32 rows of ``kind`` on the card: "centroids", bench-mixture
+    queries' distances to bench-mixture rows (bf16, as stage 1 ranks);
+    "candidates", the same with ~30% +inf (a posting's padding); "ties",
+    an all-equal row, rows of five values and rows rounded to 1,000;
+    "specials", distances with -0.0, +0.0, +-inf and NaNs of both signs."""
+    from spfresh_tpu_torch.ops.distances import pairwise_distance
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn((64, 128), generator=g, device=dev)
+
+    def draw(m):
+        a = torch.randint(0, 64, (m,), generator=g, device=dev)
+        return (centers[a] + 0.7 * torch.randn((m, 128), generator=g, device=dev)).to(
+            torch.bfloat16)
+
+    cols = draw(n)
+    x = torch.empty((rows, n), dtype=torch.float32, device=dev)
+    for s in range(0, rows, 1024):
+        x[s : s + 1024] = pairwise_distance(draw(min(1024, rows - s)), cols)
+    if kind == "candidates":
+        x.masked_fill_(torch.rand((rows, n), generator=g, device=dev) < 0.3, float("inf"))
+    elif kind == "ties":
+        x[::3] = 2.5
+        x[1::3] = torch.randint(0, 5, x[1::3].shape, generator=g, device=dev).float()
+        x[2::3] = x[2::3].round(decimals=-3)
+    elif kind == "specials":
+        nan = torch.tensor(float("nan"), device=dev)
+        special = torch.stack([torch.tensor(0.0, device=dev), torch.tensor(-0.0, device=dev),
+                               torch.tensor(float("inf"), device=dev),
+                               torch.tensor(float("-inf"), device=dev), nan, -nan.abs()])
+        at = torch.rand((rows, n), generator=g, device=dev) < min(0.5, 12 / n)
+        pick = torch.randint(0, len(special), (rows, n), generator=g, device=dev)
+        x = torch.where(at, special[pick], x)
+    return x
+
+
+def kernel_topk_select(torch, report):
+    """The row select at TOPK_CASES against its plain version (torch.topk
+    on the int64 keys, on the card): values bit for bit, columns equal.
+    The timed cases log the kernel (CUDA events over back-to-back calls,
+    and its own device time by torch.profiler), the plain version,
+    torch.topk on the f32 values (the yardstick; the port never calls it)
+    and the bytes bound."""
+    from spfresh_tpu_torch.ops import topk
+
+    cases = []
+    for i, (name, rows, n, k, kind) in enumerate(TOPK_CASES):
+        x = topk_rows(torch, rows, n, kind, seed=i)
+        before = topk.launches
+        v, idx = topk.smallest_k(x, k)
+        pv, pidx = topk.smallest_k_plain(x, k)
+        torch.cuda.synchronize()
+        assert topk.launches == before + 1, "the select did not launch its kernel"
+        bad = int(((idx != pidx) | (v.view(torch.int32) != pv.view(torch.int32))).any(1).sum())
+        assert bad == 0, f"topk_select {name}: {bad} of {rows} rows differ from the plain version"
+        line = (f"kernel topk_select {name}: rows={rows} n={n} k={k} {kind}: values and columns "
+                f"bit-equal to the plain version")
+        if name not in TOPK_TIMED:
+            log(line)
+            continue
+        iters = 20 if rows * n >= 10**7 else 200
+        ms = cuda_ms(torch, lambda: topk.smallest_k(x, k), iters)
+        dev_ms = profiled_kernel_ms(torch, lambda: topk.smallest_k(x, k), iters,
+                                    "topk_select_kernel")
+        plain_ms = cuda_ms(torch, lambda: topk.smallest_k_plain(x, k), 3)
+        lib_ms = cuda_ms(torch, lambda: torch.topk(x, k, largest=False, sorted=True), iters)
+        # Bytes: the rows read once, k (value, int64 column) pairs written.
+        b = bound(rows * n * 4 + rows * k * 12, 0, F32_FLOPS)
+        log(f"{line}; kernel={ms:.4f} ms (device {dev_ms:.4f}) plain={plain_ms:.4f} ms "
+            f"torch.topk={lib_ms:.4f} ms bound={b['bound_ms']:.4f} ms "
+            f"({b['bound_ms'] / dev_ms:.1%} of it)")
+        cases.append({"case": name, "rows": rows, "n": n, "k": k, "ms": ms, "device_ms": dev_ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms, **b})
+        del x, v, idx, pv, pidx
+    head = cases[0]  # stage 1 at main's shape
+    report["topk_select"] = {"max_abs_err": 0.0, "cases": cases,
+                             **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "bound_by")}}
+
+
+def profiled_kernel_ms(torch, fn, iters: int, kernel: str) -> float:
+    """Mean device ms a call of the kernels whose name holds ``kernel``,
+    by torch.profiler over ``iters`` calls (warmed)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    assert us > 0, f"the profiler saw no {kernel}"
+    return us / 1e3 / iters
+
+
 def kernel_rerank_int8(torch, report):
     """The quantized rerank at the large phase's shape, every metric."""
     from spfresh_tpu_torch.ops import rerank
@@ -1208,7 +1341,7 @@ def main_config(**clustering) -> dict:
 
 def phase_main(torch, n: int, nq: int, report) -> None:
     from spfresh_tpu_torch.index import Config, brute_force_search
-    from spfresh_tpu_torch.ops import rerank, replica
+    from spfresh_tpu_torch.ops import rerank, replica, topk
     from spfresh_tpu_torch.utils import metrics
 
     t0 = time.perf_counter()
@@ -1219,6 +1352,7 @@ def phase_main(torch, n: int, nq: int, report) -> None:
         metrics.DEFAULT.reset()
         rerank.launches = 0
         replica.launches = 0
+        topk.launches = 0
         index, view = build_logged(torch, cfg, data, "main")
 
         t0 = time.perf_counter()
@@ -1226,10 +1360,11 @@ def phase_main(torch, n: int, nq: int, report) -> None:
         log(f"main: exact ground truth on the card in {time.perf_counter() - t0:.2f} s")
 
         best = sweep(torch, index, queries, gt, "main")
-        counts = {"rerank": rerank.launches, "replica": replica.launches}
+        counts = {"rerank": rerank.launches, "replica": replica.launches,
+                  "topk_select": topk.launches}
         log(f"main: kernel launches in the main path {counts}; engines "
             f"{ {k: v for k, v in metrics.snapshot().items() if 'engine' in k} }")
-        assert counts["rerank"] > 0 and counts["replica"] > 0, counts
+        assert all(c > 0 for c in counts.values()), counts
         assert best is not None, "recall@10 >= 0.90 not reached within nprobe <= 64"
         nprobe, rec, qps, ids = best
         assert_no_duplicates(ids)
@@ -1238,9 +1373,28 @@ def phase_main(torch, n: int, nq: int, report) -> None:
         for name, c in counts.items():
             report[name]["launches"] = c
         profile_search(torch, index, queries, nprobe)
+        select_launch_check(torch, index, queries, nprobe)
         kernel_rerank_view(torch, view, queries, nprobe, "Euclidean", "main")
         full_probe_check(torch, index, queries)
     return index, data, queries, gt, nprobe, rec
+
+
+def select_launch_check(torch, index, queries, nprobe: int) -> None:
+    """One search at the recall point: each 8,192-query batch selects
+    three times (stage 1, the dedup prefilter, its final select), every
+    one through the row-select kernel, one row a query each."""
+    from spfresh_tpu_torch.ops import topk
+    from spfresh_tpu_torch.utils import metrics
+
+    batches = -(-len(queries) // index.config.search.query_batch_size)
+    launches, rows = topk.launches, metrics.snapshot().get("topk.select.rows", 0)
+    index.search(queries, 10, nprobe=nprobe)
+    torch.cuda.synchronize()
+    launches = topk.launches - launches
+    rows = metrics.snapshot()["topk.select.rows"] - rows
+    log(f"main: one search of {len(queries)} queries in {batches} batches launched the row "
+        f"select {launches} times over {rows:.0f} rows")
+    assert launches == 3 * batches and rows == 3 * len(queries), (launches, rows)
 
 
 def run_example(torch, name: str, smi: str, *argv):
@@ -3210,7 +3364,9 @@ def profile_search(torch, index, queries, nprobe: int, top: int = 10,
             if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
     rows += [(e.key, e.self_device_time_total / 1e3, e.count) for e in kernels
              if any(k in e.key for k in ("rerank_kernel<", "window_scan_kernel<",
-                                         "l1_linf_kernel<"))]
+                                         "l1_linf_kernel<", "topk_select_kernel<"))]
+    assert not any(e.key == "aten::topk" and e.self_device_time_total > 0 for e in events), (
+        f"{tag}: torch.topk ran on the card; every select is the row-select kernel's")
     log(f"{tag}: nprobe={nprobe}, 3 searches of {len(queries)} queries: wall={wall_ms:.1f} ms "
         f"device={device_ms:.1f} ms (idle {100 * (1 - device_ms / wall_ms):.1f}% of wall)")
     for name, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:

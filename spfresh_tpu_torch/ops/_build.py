@@ -169,6 +169,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,                   # stream
     ]
     lib.spf_l1_linf_pairwise.restype = i
+    lib.spf_topk_select.argtypes = [
+        p, p, p,             # x (rows, n) f32, out values (rows, k) f32, out columns int64
+        p, p,                # scratch (rows * tiles, k) f32 and int64, or null
+        i, i, i,             # rows, n, k
+        p,                   # stream
+    ]
+    lib.spf_topk_select.restype = i
+    lib.spf_topk_select_tiles.argtypes = [i, i, i]  # rows, n, k: tiles a row (1: no scratch)
+    lib.spf_topk_select_tiles.restype = i
     lib.spf_error_string.argtypes = [i]
     lib.spf_error_string.restype = ctypes.c_char_p
 

@@ -1,17 +1,22 @@
 """Top-k selection (counterpart of ``spfresh_tpu/ops/topk.py``).
 
 ``lax.top_k`` breaks ties toward the lower index; ``torch.topk`` promises
-no order among ties on CUDA.  ``smallest_k`` therefore selects on a unique
-int64 key, ``(order-preserving bits of the f32 value) << 32 | column``, so
-equal values resolve to the lower column on every device, exactly like the
-reference.
+no order among ties on CUDA.  ``smallest_k`` orders entries by the 32-bit
+key of the f32 value (``+ 0.0`` folds -0.0 into +0.0; sign-magnitude bits
+turned to two's-complement order) and equal keys by the lower column, on
+every device.  CUDA tensors launch the row-select kernel in
+``csrc/topk_select.cu``; CPU tensors run ``smallest_k_plain``, which
+selects on the unique int64 key ``(key << 32) | column`` with
+``torch.topk``.  Both give the same bits.
 """
 
 from __future__ import annotations
 
 import torch
 
+from spfresh_tpu_torch.ops import _build
 from spfresh_tpu_torch.ops.distances import EUCLIDEAN, canonical_metric, pairwise_distance
+from spfresh_tpu_torch.utils import metrics
 
 # Centroid counts past this leave the dense (Q, C) scan + top-k for the
 # windowed scan (Euclidean, nprobe <= 128) or the chunked scan; see
@@ -21,6 +26,9 @@ LARGE_C_THRESHOLD = 32_768
 CENTROID_CHUNK = 8192
 
 _LOW32 = 0xFFFFFFFF
+
+# Kernel launches since the last reset (set to 0 to reset).
+launches = 0
 
 
 def _tie_stable_keys(dists: torch.Tensor) -> torch.Tensor:
@@ -33,14 +41,58 @@ def _tie_stable_keys(dists: torch.Tensor) -> torch.Tensor:
     return (bits.to(torch.int64) << 32) | col
 
 
-def smallest_k(dists: torch.Tensor, k: int):
-    """Per-row k smallest values of ``dists`` (..., n) -> (values, indices),
-    ascending, ties to the lower index."""
-    if k > dists.shape[-1]:
-        raise ValueError(f"k={k} exceeds the {dists.shape[-1]} columns")
+def smallest_k_plain(dists: torch.Tensor, k: int):
+    """Plain PyTorch version: ``torch.topk`` on the int64 keys of
+    ``_tie_stable_keys``, the columns from their low bits."""
     keys = torch.topk(_tie_stable_keys(dists), k, dim=-1, largest=False, sorted=True).values
     idx = keys & _LOW32
     return torch.gather(dists, -1, idx), idx
+
+
+def smallest_k(dists: torch.Tensor, k: int):
+    """Per-row k smallest values of ``dists`` (..., n) -> (values, indices),
+    ascending, ties to the lower index.  Values keep ``dists``' dtype and
+    bits; indices are int64.  Counts the rows under ``topk.select.rows``."""
+    global launches
+    n = dists.shape[-1]
+    if k > n:
+        raise ValueError(f"k={k} exceeds the {n} columns")
+    rows = dists.numel() // n if n else 0
+    if dists.device.type == "cpu":
+        metrics.inc("topk.select.rows", rows)
+        return smallest_k_plain(dists, k)
+    if k < 1:
+        raise ValueError(f"the top-k select kernel takes 1 <= k <= n; got k={k}")
+    if not dists.is_floating_point():
+        raise TypeError(f"the top-k select kernel takes floating rows; got {dists.dtype}")
+    if n >= 2**31 or rows >= 2**31:
+        raise ValueError(f"{rows} rows of {n} columns exceed the top-k select kernel's range")
+    if dists.device.type != "cuda":
+        raise ValueError(f"no top-k select kernel for device {dists.device}")
+    x = dists.to(torch.float32).contiguous()
+    vals = torch.empty((*dists.shape[:-1], k), dtype=torch.float32, device=x.device)
+    idx = torch.empty((*dists.shape[:-1], k), dtype=torch.int64, device=x.device)
+    if rows:
+        lib = _build.library()
+        # Long rows of few selections run as tiles merged in a second launch.
+        tiles = lib.spf_topk_select_tiles(rows, n, k)
+        tile_vals = tile_idx = None
+        if tiles > 1:
+            tile_vals = torch.empty((rows * tiles, k), dtype=torch.float32, device=x.device)
+            tile_idx = torch.empty((rows * tiles, k), dtype=torch.int64, device=x.device)
+        with torch.cuda.device(x.device):  # the library launches on the current device
+            rc = lib.spf_topk_select(
+                x.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                None if tiles == 1 else tile_vals.data_ptr(),
+                None if tiles == 1 else tile_idx.data_ptr(), rows, n, k,
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+        _build.check(rc, "top-k select")
+        launches += 1
+    metrics.inc("topk.select.rows", rows)
+    if dists.dtype != torch.float32:
+        vals = torch.gather(dists, -1, idx)
+    return vals, idx
 
 
 def smallest_k_unique(dists: torch.Tensor, ids: torch.Tensor, k: int, max_dup: int = 8):

@@ -186,7 +186,8 @@ def test_build_cache_key_covers_sources():
     path = _build._library_path()
     assert path.parent == _build.BUILD_DIR
     assert [p.name for p in _build.sources()] == ["centroid_scan.cu", "pairwise.cu", "replica.cu",
-                                                  "rerank.cu", "rerank_int8mxu.cu"]
+                                                  "rerank.cu", "rerank_int8mxu.cu",
+                                                  "topk_select.cu"]
     assert path.name.startswith("libspfresh_kernels_") and path.suffix == ".so"
 
 
