@@ -36,6 +36,15 @@ numbers are compared, each with a limit of its own (``limits/<cell>.json``):
 
 ``recall_at_10`` of the judged rows against the reference's exact 10 nearest
 of the f32 rows comes out of the same pass.
+
+Residual int8 storage (``reference/sq8.py``) keeps a row once in each
+posting that holds it, each copy at a value of its own.  There ``dist_err``
+takes, of each returned (query, id), the copy whose reference distance lies
+nearest the returned one; ``missed`` ranks each candidate by its nearest
+copy among the postings the query surely probes, and routes on the
+unrounded f32 queries and centroids, as a store of this kind does.  Without
+a snapshot there are no copies: each row is stored once, at the wire
+precision.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from annbench.reference import sq8
 from annbench.reference.exact import exact_topk, nearest_centroids, prefilter, round_to, \
     sq_l2_f64
 
@@ -94,9 +104,10 @@ def _wrong_slots(a: Answers, ledger: Ledger, k: int) -> int:
     return wrong
 
 
-def _dist_err(rows_all, table, answers: List[Answers], ledger: Ledger, storage) -> float:
+def _returned(answers: List[Answers], n: int):
+    """(query rows, ids, distances f64) of every returned in-range id with a
+    finite distance, or None where there is none."""
     q_rows, ids, got = [], [], []
-    n = len(ledger.born)
     for a in answers:
         if a.ids is None:
             continue
@@ -107,8 +118,15 @@ def _dist_err(rows_all, table, answers: List[Answers], ledger: Ledger, storage) 
         ids.append(i[ok])
         got.append(np.asarray(a.dists[:m], np.float64)[ok])
     if not ids or not sum(len(x) for x in ids):
+        return None
+    return tuple(np.concatenate(x) for x in (q_rows, ids, got))
+
+
+def _dist_err(rows_all, table, answers: List[Answers], ledger: Ledger, storage) -> float:
+    returned = _returned(answers, len(ledger.born))
+    if returned is None:
         return float("inf")
-    q_rows, ids, got = (np.concatenate(x) for x in (q_rows, ids, got))
+    q_rows, ids, got = returned
     dev = rows_all.device
     ref = []
     for s in range(0, len(ids), PAIR_CHUNK):
@@ -119,6 +137,80 @@ def _dist_err(rows_all, table, answers: List[Answers], ledger: Ledger, storage) 
     got = torch.from_numpy(got).to(dev)
     scale = torch.clamp_min(ref, float(ref.median()))
     return float(((got - ref).abs() / scale).max())
+
+
+class _Copies:
+    """The stored copies of residual int8 storage: the snapshot's (id,
+    posting) pairs sorted by id, with every posting's scale worked out
+    again from its members (``reference.sq8``)."""
+
+    def __init__(self, rows_all: torch.Tensor, snapshot):
+        dev = rows_all.device
+        mids, mpost = snapshot.member_ids, snapshot.member_post
+        inr = (mids >= 0) & (mids < rows_all.shape[0])
+        order = np.argsort(mids[inr], kind="stable")
+        self.ids = torch.from_numpy(mids[inr][order]).to(dev)
+        self.posts = torch.from_numpy(mpost[inr][order]).to(dev)
+        self.rows = rows_all
+        self.cent = torch.from_numpy(snapshot.centroids).to(dev)
+        self.scales = sq8.posting_scales(rows_all, self.cent, self.ids, self.posts)
+
+    def distances(self, queries: torch.Tensor, qidx: torch.Tensor, ids: torch.Tensor):
+        """(P, W) f64 squared L2 from ``queries[qidx]`` to each stored copy of
+        ``ids`` (P,), and (P, W) the copy's posting; +inf and -1 past an
+        id's copies (W at least 1)."""
+        lo = torch.searchsorted(self.ids, ids)
+        hi = torch.searchsorted(self.ids, ids, right=True)
+        width = max(1, int((hi - lo).max()) if ids.numel() else 0)
+        dist = torch.full((ids.shape[0], width), float("inf"), dtype=torch.float64,
+                          device=ids.device)
+        post = torch.full((ids.shape[0], width), -1, dtype=torch.int64, device=ids.device)
+        for o in range(width):
+            sel = torch.nonzero(lo + o < hi).squeeze(1)
+            p = self.posts[lo[sel] + o]
+            dist[sel, o] = sq8.copy_distances(queries, qidx[sel], self.rows, self.cent,
+                                              self.scales, ids[sel], p)
+            post[sel, o] = p
+        return dist, post
+
+
+def _dist_err_copies(table, answers: List[Answers], ledger: Ledger, copies: _Copies) -> float:
+    """``dist_err`` where a row has a stored copy in each posting that holds
+    it: against the copy whose reference distance lies nearest the returned
+    one (an id with no copy reads +inf)."""
+    returned = _returned(answers, len(ledger.born))
+    if returned is None:
+        return float("inf")
+    dev = copies.ids.device
+    q_rows, ids, got = (torch.from_numpy(x).to(dev) for x in returned)
+    dist, _ = copies.distances(table, q_rows, ids)
+    j = (got[:, None] - dist).abs().argmin(1, keepdim=True)
+    ref = dist.gather(1, j).squeeze(1)
+    if not torch.isfinite(ref).all():
+        return float("inf")
+    scale = torch.clamp_min(ref, float(ref.median()))
+    return float(((got - ref).abs() / scale).max())
+
+
+def _nearest_copies(copies: _Copies, tq: torch.Tensor, cand: torch.Tensor, live: torch.Tensor,
+                    nprobe: int, k: int):
+    """The reference's k nearest of the candidates ``cand`` (U, c) of the
+    queries ``tq`` (U, d), each ranked by its nearest stored copy among the
+    postings its query surely probes (routed on the f32 queries and
+    centroids), ties to the lower row: (ids (U, k), distances (U, k) f64,
+    reachable (U, k): the id has such a copy)."""
+    U, c = cand.shape
+    probed = _surely_probed(tq.to(torch.float64), copies.cent.to(torch.float64), nprobe)
+    qidx = torch.arange(U, device=cand.device).repeat_interleave(c)
+    dist, post = copies.distances(tq, qidx, cand.reshape(-1))
+    inside = (post >= 0) & probed[qidx[:, None], post.clamp_min(0)]
+    e = torch.where(inside, dist, torch.full_like(dist, float("inf"))).min(1).values
+    e = e.reshape(U, c).masked_fill(~live[cand], float("inf"))
+    order = torch.argsort(cand, dim=1)
+    cand, e = torch.gather(cand, 1, order), torch.gather(e, 1, order)
+    srt = torch.argsort(e, dim=1, stable=True)[:, :k]
+    J, E = torch.gather(cand, 1, srt), torch.gather(e, 1, srt)
+    return J, E, torch.isfinite(E)
 
 
 def _surely_probed(q: torch.Tensor, cent: torch.Tensor, nprobe: int) -> torch.Tensor:
@@ -207,7 +299,16 @@ def compare(rows_all: torch.Tensor, table: torch.Tensor, answers: List[Answers],
         m = snapshot.member_ids
         members[m[(m >= 0) & (m < len(members))]] = True
         wrong += int((live_np & ~members).sum()) + int((~live_np & members).sum())
-    dist_err = _dist_err(rows_all, table, answers, ledger, storage)
+    copies = None
+    if storage == torch.int8:
+        if snapshot is None:
+            storage = sq8.WIRE   # no postings: each row stored once, at the wire precision
+        else:
+            copies = _Copies(rows_all, snapshot)
+    if copies is None:
+        dist_err = _dist_err(rows_all, table, answers, ledger, storage)
+    else:
+        dist_err = _dist_err_copies(table, answers, ledger, copies)
     stray = _stray(rows_all, ledger, snapshot, nprobe)
 
     judged = [a for a in answers if a.judged and a.ids is not None]
@@ -219,8 +320,11 @@ def compare(rows_all: torch.Tensor, table: torch.Tensor, answers: List[Answers],
     tq = table[torch.from_numpy(uq).to(dev)]
     cand = prefilter(rows_all, live, tq, 64)
     gt_ids, _ = exact_topk(rows_all, tq, k, live=live, cand=cand)
-    J, e = exact_topk(rows_all, tq, k, live=live, cand=cand, round_rows=storage)
-    reach = _reachable(table, snapshot, uq, J, nprobe, storage)
+    if copies is None:
+        J, e = exact_topk(rows_all, tq, k, live=live, cand=cand, round_rows=storage)
+        reach = _reachable(table, snapshot, uq, J, nprobe, storage)
+    else:
+        J, e, reach = _nearest_copies(copies, tq, cand, live, nprobe, k)
     missed = considered = hits = total = 0
     for a in judged:
         m = min(len(a.rows), a.ids.shape[0])

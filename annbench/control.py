@@ -1,8 +1,10 @@
 """The control of the comparison: the reference put in the system's place,
-computed in the precision below the configuration's (fp8 e4m3 for bf16
-storage).  It answers every search exactly, over rows and queries rounded to
-fp8, keeps the live set itself, and has no postings (every live row counts
-as probed).  The comparison has to find it not correct.
+computed in the precision below the configuration's: fp8 e4m3 for bf16
+storage, and for int8 residual storage, whose steps of 1/254 of a posting's
+residual range fp8's 3-bit mantissa cannot hold; bf16 for f32.  It answers
+every search exactly, over rows and queries rounded to that precision, keeps
+the live set itself, and has no postings (every live row counts as probed).
+The comparison has to find it not correct.
 
     python3 annbench/control.py --workload <cell> --seeds 1 2 3 --seconds 5
 
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-LOWER = {"bfloat16": torch.float8_e4m3fn, "float32": torch.bfloat16}
+LOWER = {"bfloat16": torch.float8_e4m3fn, "float32": torch.bfloat16,
+         "int8": torch.float8_e4m3fn}
 
 
 class ReferenceSystem:

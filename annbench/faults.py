@@ -3,6 +3,8 @@ broken run at a cell's own size.  The benchmark's own runs never plant one.
 
     python3 annbench/faults.py --workload sift1m-spfresh.churn --fault insert_anywhere \
         --seeds 1 2 3 --seconds 10
+    python3 annbench/faults.py --workload bigann4m-int8.batch --fault sq8_truncate \
+        --seeds 1 2 3 --seconds 10
 
 prints one JSON line per seed with the compared numbers beside their limits.
 The tests (``tests/test_annbench_faults.py``) plant the same faults at a
@@ -45,7 +47,39 @@ def insert_anywhere(seed: int = 0):
         fresh.SpFreshIndex._nearest_postings = real
 
 
-FAULTS = {"insert_anywhere": insert_anywhere}
+@contextlib.contextmanager
+def sq8_truncate(seed: int = 0):
+    """The index's int8 pack rounds each residual code toward zero instead
+    of to the nearest: a stored copy moves by up to a whole step of its
+    posting's scale a coordinate, where SQ8 keeps it within half a step.
+    The pack's own scales and slots are kept; only the codes change."""
+    import torch
+    from spfresh_tpu_torch.index import spann
+
+    real = spann._pack_slabs
+
+    def truncating(vec_source, flat_ids, slots, Cpad, pad, d, d_pad, sd, device, cent=None):
+        v, ids, scales = real(vec_source, flat_ids, slots, Cpad, pad, d, d_pad, sd, device,
+                              cent=cent)
+        if sd == torch.int8:
+            flat = v.view(Cpad * pad, d_pad)
+            at = torch.from_numpy(slots.astype(np.int64)).to(device)
+            inv = torch.reciprocal(scales)
+            for s in range(0, len(slots), 1 << 16):
+                e = min(len(slots), s + (1 << 16))
+                seg = at[s:e] // pad
+                r = (vec_source(s, e) - cent[seg]) * inv[seg][:, None]
+                flat[at[s:e], :d] = torch.trunc(r).clamp_(-127, 127).to(torch.int8)
+        return v, ids, scales
+
+    spann._pack_slabs = truncating
+    try:
+        yield
+    finally:
+        spann._pack_slabs = real
+
+
+FAULTS = {"insert_anywhere": insert_anywhere, "sq8_truncate": sq8_truncate}
 
 
 def main(argv=None) -> int:

@@ -11,6 +11,8 @@ needs (a posting's members, not its padding).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -22,6 +24,7 @@ PEAK_OPS = {
     "int8": 1979e12,  # tensor cores
 }
 STORAGE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
+SCAN_WINDOW = 128   # centroids whose rank minimum the windowed stage 1 keeps as one
 
 
 def bound_s(nbytes: float, ops: float, peak: str) -> float:
@@ -30,12 +33,16 @@ def bound_s(nbytes: float, ops: float, peak: str) -> float:
 
 
 def probed_postings(queries: np.ndarray, centroids: np.ndarray, nprobe: int,
-                    round_to: torch.dtype, device) -> np.ndarray:
+                    round_to: Optional[torch.dtype], device) -> np.ndarray:
     """The benchmark's own plain top-nprobe: each query's nprobe nearest
-    centroids under squared L2, queries and centroids rounded to the
-    centroids' stored dtype, in f64.  (Q, nprobe) posting indices."""
-    q = torch.from_numpy(queries).to(device).to(round_to).to(torch.float64)
-    c = torch.from_numpy(centroids).to(device).to(round_to).to(torch.float64)
+    centroids under squared L2, queries and centroids rounded to the dtype
+    stage 1 ranks in (None: the f32 values as given), in f64.  (Q, nprobe)
+    posting indices."""
+    q = torch.from_numpy(queries).to(device)
+    c = torch.from_numpy(centroids).to(device)
+    if round_to is not None:
+        q, c = q.to(round_to), c.to(round_to)
+    q, c = q.to(torch.float64), c.to(torch.float64)
     out = []
     for s in range(0, q.shape[0], 1024):
         qb = q[s:s + 1024]
@@ -50,9 +57,33 @@ def rerank_work(probes: np.ndarray, lens: np.ndarray, dim: int, storage: str) ->
     each probed posting's members read once at ``dim`` x the storage width,
     each query read once in f32, each (query, member) distance written once
     in f32; 3 operations (a difference, a multiply, an add) a coordinate of
-    each (query, member) pair."""
+    each (query, member) pair.  Residual int8 codes also need each probed
+    posting's centroid (f32) and scale (f32) read once, and a dequantizing
+    multiply: 4 operations a coordinate of a pair."""
     Q = probes.shape[0]
     pairs = float(lens[probes].sum())
-    members = float(lens[np.unique(probes)].sum())
+    probed = np.unique(probes)
+    members = float(lens[probed].sum())
     nbytes = members * dim * STORAGE_BYTES[storage] + Q * dim * 4 + pairs * 4
-    return {"bytes": nbytes, "ops": 3.0 * dim * pairs}
+    per_coord = 3.0
+    if storage == "int8":
+        nbytes += len(probed) * (dim * 4 + 4)
+        per_coord = 4.0
+    return {"bytes": nbytes, "ops": per_coord * dim * pairs}
+
+
+def centroid_scan_work(queries: int, centroids: int, dim: int) -> dict:
+    """Bytes and operations of the windowed stage 1's scan for ``queries``
+    queries over ``centroids`` centroids (the real ones, not the padding),
+    against the TF32 peak: 2 x queries x centroids x dim operations (a
+    multiply and an add a coordinate of each pair) three times over.  The
+    rank has to be f32-grade (it orders the probes of f32 centroids), and
+    the card's fastest route to f32-grade products is three TF32 passes on
+    the tensor cores (hi.hi + hi.lo + lo.hi); counting that work at the TF32
+    peak makes the bound the least time an f32-grade rank can take, the
+    same whatever implements it.  Bytes: each query and each centroid read
+    once in f32, each window minimum (one a ``SCAN_WINDOW`` centroids)
+    written once in f32."""
+    windows = -(-centroids // SCAN_WINDOW)
+    nbytes = 4.0 * (queries * dim + centroids * dim + queries * windows)
+    return {"bytes": nbytes, "ops": 3.0 * 2.0 * queries * centroids * dim}

@@ -23,7 +23,7 @@ from annbench.check import Answers, Ledger, compare
 from annbench.clients import Recorder, Request, Spans, Traffic, WriterStep, now, run_reader, \
     run_writer
 from annbench.data import generator, host_rng, make_corpus
-from annbench.roofline import bound_s, probed_postings, rerank_work
+from annbench.roofline import bound_s, centroid_scan_work, probed_postings, rerank_work
 from annbench.tracing import Slice, Tracer
 
 TRACE_SLICE_S = 6.0   # the traced slice, unless the mix names its own (``trace_slice_s``)
@@ -73,23 +73,30 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize()
 
 
-def _rerank_facts(run_facts: dict, cfg: dict, traffic: Traffic, pool: np.ndarray, snap,
+def _kernel_facts(run_facts: dict, cfg: dict, traffic: Traffic, pool: np.ndarray, snap,
                   device) -> None:
-    """The slab rerank's bound a whole-pool request needs: per query batch
-    of the index's batching, the postings the benchmark's own top-nprobe
-    probes (``roofline``)."""
+    """The bounds a whole-pool request needs, per query batch of the index's
+    batching (``roofline``): the slab rerank's over the postings the
+    benchmark's own top-nprobe probes, and the windowed stage 1's scan over
+    every centroid."""
     storage = cfg["index"]["storage_dtype"]
     lens = np.bincount(snap.member_post, minlength=len(snap.centroids))
     bs = cfg["index"]["search"]["query_batch_size"]
-    probes = probed_postings(pool, snap.centroids, traffic.nprobe, STORAGE[storage], device)
-    bound = 0.0
+    # int8 storage routes on the f32 centroids; float storage in its own dtype.
+    route = None if storage == "int8" else STORAGE[storage]
+    probes = probed_postings(pool, snap.centroids, traffic.nprobe, route, device)
+    bound = scan = 0.0
     batches = 0
     for s in range(0, len(pool), bs):
         w = rerank_work(probes[s:s + bs], lens, pool.shape[1], storage)
         bound += bound_s(w["bytes"], w["ops"], "f32")
+        w = centroid_scan_work(len(probes[s:s + bs]), len(snap.centroids), pool.shape[1])
+        scan += bound_s(w["bytes"], w["ops"], "tf32")
         batches += 1
     run_facts["rerank_bound_s_per_request"] = bound
     run_facts["rerank_launches_per_request"] = batches
+    run_facts["centroid_scan_bound_s_per_request"] = scan
+    run_facts["centroid_scan_launches_per_request"] = batches
 
 
 def execute(cell: spec.Cell, seed: int, seconds: float, *, device, trace: bool,
@@ -223,7 +230,7 @@ def execute(cell: spec.Cell, seed: int, seconds: float, *, device, trace: bool,
     peak = int(torch.cuda.max_memory_allocated()) if device.type == "cuda" else 0
     facts: Dict[str, float] = {}
     if slice_ is not None and snap is not None and traffic.sizes[0] >= pool_n:
-        _rerank_facts(facts, cfg, traffic, pool_np, snap, device)
+        _kernel_facts(facts, cfg, traffic, pool_np, snap, device)
     system.close()
     del system
     gc.unfreeze()

@@ -7,7 +7,7 @@ import pytest
 
 from annbench import spec
 from annbench.clients import Request, WriterStep
-from annbench.roofline import HBM_BPS, PEAK_OPS, bound_s, rerank_work
+from annbench.roofline import HBM_BPS, PEAK_OPS, bound_s, centroid_scan_work, rerank_work
 from annbench.runner import Run
 from annbench.stats import closed_window, percentile, quartile_spread, rate
 
@@ -105,3 +105,24 @@ def test_rerank_bytes_and_operations():
     assert w["ops"] == 3 * 128 * pairs
     assert bound_s(w["bytes"], w["ops"], "f32") == max(w["bytes"] / HBM_BPS,
                                                       w["ops"] / PEAK_OPS["f32"])
+
+
+def test_int8_rerank_bytes_and_operations():
+    lens = np.array([10, 20, 30, 0])
+    probes = np.array([[0, 1], [1, 2], [2, 2]])
+    w = rerank_work(probes, lens, dim=128, storage="int8")
+    members = 10 + 20 + 30                          # each probed posting once, a byte a value
+    pairs = (10 + 20) + (20 + 30) + (30 + 30)
+    postings = 3                                    # their centroids and scales, once
+    assert w["bytes"] == members * 128 + 3 * 128 * 4 + pairs * 4 + postings * (128 * 4 + 4)
+    assert w["ops"] == 4 * 128 * pairs              # dequantize, difference, multiply, add
+
+
+def test_centroid_scan_bytes_and_operations():
+    w = centroid_scan_work(8192, 40_000, 128)
+    windows = 313                                   # 40,000 centroids in windows of 128
+    assert w["ops"] == 3 * 2 * 8192 * 40_000 * 128  # three TF32 passes of the product
+    assert w["bytes"] == 4 * (8192 * 128 + 40_000 * 128 + 8192 * windows)
+    assert bound_s(w["bytes"], w["ops"], "tf32") == w["ops"] / PEAK_OPS["tf32"]
+    assert centroid_scan_work(3, 128, 4) == {"ops": 3 * 2 * 3 * 128 * 4,
+                                             "bytes": 4 * (3 * 4 + 128 * 4 + 3 * 1)}

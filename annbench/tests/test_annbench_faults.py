@@ -9,7 +9,8 @@ from annbench.control import ReferenceSystem
 from annbench.faults import insert_anywhere
 from annbench.testing import run_small
 
-CELLS = ["sift1m-bf16.batch", "sift1m-bf16.online", "sift1m-spfresh.churn"]
+CELLS = ["sift1m-bf16.batch", "sift1m-bf16.online", "sift1m-spfresh.churn",
+         "bigann4m-int8.batch"]
 
 
 @pytest.mark.parametrize("name", CELLS)

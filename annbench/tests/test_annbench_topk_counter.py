@@ -31,7 +31,8 @@ def test_declared_for_the_batch_cell():
     bench = {m["name"]: m for m in spec.load_benchmark()["per_layer"]}
     m = bench[NAME]
     assert m["source"] == "program_counter" and m["moves"] == "search_qps"
-    assert m["layer"] == "Search pipeline" and m["workloads"] == ["sift1m-bf16.batch"]
+    assert m["layer"] == "Search pipeline"
+    assert m["workloads"] == ["sift1m-bf16.batch", "bigann4m-int8.batch"]
 
 
 def test_batch_cell_selects_three_rows_a_query():
