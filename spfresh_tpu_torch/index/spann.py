@@ -148,12 +148,14 @@ def _probe_candidates(queries, view: "PaddedView", rows, cent_d, *, k: int, metr
     the chunk's and hold the lowest columns among equal values, so the
     running set is the unchunked block's top-kk in its order, and a dedup
     top-k of it (the k-th distinct id lies within rank k * max_dup)
-    returns the same ids as of the whole block."""
+    returns the same ids as of the whole block.  Counts the chunks taken
+    in ``search.probe_chunks`` (1 for the whole block)."""
     Q, nprobe = rows.shape
     pad = view.pad
     per_probe = Q * (pad * _CAND_BYTES
                      + (view.d_pad * 4 if view.vectors3d.dtype == torch.int8 else 0))
     probe_chunk = max(1, PROBE_CHUNK_BYTES // max(1, per_probe))
+    metrics.inc("search.probe_chunks", -(-nprobe // probe_chunk))
     if probe_chunk >= nprobe:
         d, cand_ids = _probe_block(queries, view, rows, cent_d, metric, thr)
         return d.reshape(Q, nprobe * pad), cand_ids.reshape(Q, nprobe * pad)
@@ -857,9 +859,7 @@ class SpannIndex:
             for s in range(0, queries.shape[0], bs):
                 qh = queries[s : s + bs]
                 with span("search.stage", qh.shape[0]):
-                    qpad = np.zeros((qh.shape[0], view.d_pad), np.float32)
-                    qpad[:, : self.dim] = qh
-                    qb = self._stage_queries(qpad)
+                    qb = self._stage_queries(qh, view.d_pad)
                 qi, qd = _search_padded(qb, view, k=int(k), nprobe=eff_nprobe,
                                         metric=self.metric, prune_factor=prune_factor)
                 out_i.append(qi)
@@ -872,19 +872,31 @@ class SpannIndex:
                     torch.cat(out_d).cpu().numpy(),
                 )
 
-    def _stage_queries(self, a: np.ndarray) -> torch.Tensor:
-        """One padded query batch as f32 on the device, through the
-        configured wire, with the JAX package's arithmetic."""
+    def _stage_queries(self, a: np.ndarray, d_pad: int) -> torch.Tensor:
+        """One query batch as f32 on the device, through the configured
+        wire, with the JAX package's arithmetic, widened with zero columns
+        to ``d_pad`` where that is wider.  The rows cross unpadded and the
+        device appends the zero columns: no padded copy is made on the host
+        (at 8,192 x 1,024 f32 such a copy is a fresh 32 MiB mapping,
+        page-faulted every batch).  Counts the bytes the wire moves to the
+        device in ``search.stage.bytes``."""
+        a = np.ascontiguousarray(a)
         wire = self.config.search.query_wire
-        if wire == "bfloat16":
-            return torch.from_numpy(a).to(torch.bfloat16).to(self.device).to(torch.float32)
         if wire == "int8":
             s = np.abs(a).max(axis=1, keepdims=True) / np.float32(127.0)
             s = np.maximum(s, np.float32(1e-30)).astype(np.float32)
             codes = np.clip(np.rint(a / s), -127, 127).astype(np.int8)
-            return (torch.from_numpy(codes).to(self.device).to(torch.float32)
-                    * torch.from_numpy(s).to(self.device))
-        return torch.from_numpy(a).to(self.device)
+            metrics.inc("search.stage.bytes", codes.nbytes + s.nbytes)
+            q = (torch.from_numpy(codes).to(self.device).to(torch.float32)
+                 * torch.from_numpy(s).to(self.device))
+        else:
+            # torch.from_numpy takes the caller's buffer, and wants it writeable.
+            t = torch.from_numpy(a if a.flags.writeable else a.copy())
+            if wire == "bfloat16":
+                t = t.to(torch.bfloat16)
+            metrics.inc("search.stage.bytes", t.numel() * t.element_size())
+            q = t.to(self.device).to(torch.float32)
+        return torch.nn.functional.pad(q, (0, d_pad - a.shape[1])) if d_pad > a.shape[1] else q
 
     def find_k_nearest_neighbor_spann(self, query, k: int) -> Optional[List[PointData]]:
         """Single-query reference-parity API: nprobe = k and 1.2x pruning;

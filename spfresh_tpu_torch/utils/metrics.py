@@ -1,8 +1,11 @@
 """Named counters and gauges (counterpart of ``spfresh_tpu/utils/metrics.py``).
 
 The search path records which engine ran (``search.engine.cuda`` or
-``search.engine.cpu``) and the build which replica engine ran
-(``build.replica_engine.cuda`` or ``...cpu``).
+``search.engine.cpu``), the chunks of the probe axis each query batch
+took (``search.probe_chunks``) and the bytes its queries moved to the
+device through the configured wire (``search.stage.bytes``); the build
+records which replica engine ran (``build.replica_engine.cuda`` or
+``...cpu``).
 
 Each span (``utils.profiling.span``) adds three counters as it closes:
 ``<name>.s`` (seconds it was open), ``<name>.n`` (spans closed) and

@@ -215,5 +215,5 @@ def test_query_wires_give_jax_ids(jax_built, wire, storage):
     np.testing.assert_array_equal(got_i, want_i)
     fin = np.isfinite(want_d)
     np.testing.assert_allclose(got_d[fin], want_d[fin], rtol=1e-5)
-    staged = port._stage_queries(np.ascontiguousarray(queries[:4])).numpy()
+    staged = port._stage_queries(np.ascontiguousarray(queries[:4]), port.dim).numpy()
     assert staged.dtype == np.float32 and not np.array_equal(staged, queries[:4])
